@@ -1,0 +1,571 @@
+#!/usr/bin/env python3
+"""On-card smoke run of the PyTorch / CUDA port (``src/repro_torch``).
+
+Run from the root of a checkout, on a machine with one NVIDIA H100::
+
+    python3 chip_smoke.py
+
+Phases; any failure stops the run with a non-zero exit:
+
+1. device   — needs ``torch.cuda``; prints the card's name and power limit;
+              turns TF32 off for matmuls and convolutions.
+2. build    — compiles ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``.
+3. kernels  — each kernel against its plain PyTorch version at the
+              autoencoder's layer shapes, two stacks and two ragged shapes,
+              f32 and bf16; stacked against per-item bit for bit; the fused
+              kernel with ``fold_momentum=False`` against the composed
+              bilinear + rank1_update kernels.
+4. main     — 20 Eva steps of the paper's full-width autoencoder
+              (784-1000-500-250-30-250-500-1000-784, batch 1000) composed and
+              20 fused, through ``make_optimizer`` / ``init_opt_state`` /
+              ``make_train_step``; launch counts, loss falls, and the same
+              steps with ``kernel_impl='torch'`` as the yardstick.
+5. stacked  — a few steps of MLP 784-1000-1000-1000-1000-10, whose three
+              1000x1000 layers form one stacked bucket.
+6. times    — CUDA-event times of each kernel, its plain version and the
+              one-call library equivalent at the autoencoder's shapes, eager
+              and replayed from a CUDA graph; the step times, the forward +
+              backward alone, and a torch.profiler breakdown of the step.
+
+The line before the card line is ``{"kernels": [...]}``; the last line is
+``{"ok": true, "device": {...}}``.
+"""
+from __future__ import annotations
+
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / 'src'
+
+AE_SHAPES = [(784, 1000), (1000, 500), (500, 250), (250, 30), (30, 250),
+             (250, 500), (500, 1000), (1000, 784)]
+STACKS = [(3, 1000, 1000), (2, 129, 127)]
+RAGGED = [(1000, 513), (200, 136)]
+GAMMA, MU = 0.03, 0.9
+TOL = {'float32': 1e-5, 'bfloat16': 3e-2}   # tests/test_kernels.py
+FUSED_TOL = 1e-6                            # tests/test_fused.py
+TRAJ_RTOL = 1e-4                            # cuda vs torch loss, per step
+HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
+F32_FLOPS = 67e12                           # H100 SXM f32, no tensor cores
+STEPS = 20
+
+
+def fail(msg: str):
+    raise SystemExit(f'chip_smoke: FAILED: {msg}')
+
+
+def require(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def phase(name: str) -> None:
+    print(f'== {name}', flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 1. device
+
+
+def device_phase(torch):
+    phase('1 device')
+    require(torch.cuda.is_available(), 'torch.cuda is not available')
+    smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
+                          '--format=csv,noheader'], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()[0]
+    print(smi)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print(f'torch {torch.__version__} cuda {torch.version.cuda} '
+          f'python {sys.version.split()[0]}')
+    print(f'allow_tf32 matmul={torch.backends.cuda.matmul.allow_tf32} '
+          f'cudnn={torch.backends.cudnn.allow_tf32}')
+    return smi
+
+
+# ---------------------------------------------------------------------------
+# 2. build
+
+
+def build_phase():
+    phase('2 build')
+    from repro_torch.kernels import build
+    secs = build.build_all()
+    print(f'built {[s.name for s in build.sources()]} in {secs:.2f} s '
+          f'into {build.build_dir()}')
+    for log in sorted(build.build_dir().glob('*.log')):
+        for line in log.read_text().splitlines():
+            if 'registers' in line or 'spill' in line or 'error' in line:
+                print(f'  {log.stem}: {line.strip()}')
+
+
+# ---------------------------------------------------------------------------
+# 3. kernels against their plain versions
+
+
+def _inputs(torch, shape, dtype, seed):
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    *lead, d_in, d_out = shape
+    g = torch.randn(shape, generator=gen, device='cuda').to(dtype)
+    a = torch.randn((*lead, d_in), generator=gen, device='cuda')
+    b = torch.randn((*lead, d_out), generator=gen, device='cuda')
+    m = torch.randn(shape, generator=gen, device='cuda')
+    return g, a, b, m
+
+
+def _cs(torch, g, a, b, dot):
+    denom = GAMMA + (a * a).sum(-1) * (b * b).sum(-1)
+    return torch.stack([dot / denom, torch.full_like(denom, 1.0 / GAMMA)], -1)
+
+
+def kernels_phase(torch):
+    phase('3 kernels against plain versions')
+    from repro_torch.kernels import bilinear as bil
+    from repro_torch.kernels import fused, ops, ref
+    from repro_torch.kernels import rank1_update as r1
+
+    err = {'bilinear': 0.0, 'rank1_update': 0.0, 'eva_fused': 0.0}
+    cases = [((1,) + s, True) for s in AE_SHAPES] + \
+        [(s, False) for s in STACKS] + [((1,) + s, False) for s in RAGGED]
+    for seed, (shape, on_path) in enumerate(cases):
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).rsplit('.', 1)[-1]
+            tol = TOL[name]
+            g, a, b, m = _inputs(torch, shape, dtype, seed)
+            tag = f'{"x".join(map(str, shape))} {name}'
+
+            # bilinear: error held against the sum's own scale Σ|a_i g_ij b_j|
+            dot, sq = bil.bilinear_and_norms_stacked(g, a, b)
+            want, sq_want = ref.bilinear_and_norms_ref(g, a, b)
+            require(torch.allclose(sq, sq_want, rtol=1e-5, atol=0),
+                    f'bilinear norms {tag}')
+            scale = ref.bilinear_ref(g.abs(), a.abs(), b.abs())
+            e = (dot - want).abs()
+            require(bool((e <= tol * scale).all()),
+                    f'bilinear {tag}: err {e.max().item():.3e} > '
+                    f'{tol} x scale')
+            # rank1_update
+            cs = _cs(torch, g, a, b, want)
+            p = r1.rank1_update_stacked(g, a, b, cs)
+            p_want = ref.rank1_update_ref(g, a, b, cs[:, 0], cs[:, 1])
+            require(p.dtype == g.dtype, f'rank1_update {tag}: dtype {p.dtype}')
+            ep = (p.float() - p_want.float()).abs()
+            require(bool((ep <= tol + tol * p_want.float().abs()).all()),
+                    f'rank1_update {tag}: err {ep.max().item():.3e}')
+            # fused, both folds, held on the γ-scaled output as test_fused.py
+            for fold in (False, True):
+                out, aux = fused.eva_fused_stacked(g, a, b, GAMMA, m, MU, fold)
+                o_want, a_want = ref.eva_fused_ref(g, a, b, GAMMA, m, MU, fold)
+                eo = (GAMMA * out - GAMMA * o_want).abs()
+                require(bool((eo <= FUSED_TOL + FUSED_TOL *
+                              (GAMMA * o_want).abs()).all()),
+                        f'eva_fused fold={fold} {tag}: err '
+                        f'{eo.max().item():.3e}')
+                ea = (aux - a_want).abs()
+                require(bool((ea <= 1e-4 + 2e-5 * a_want.abs()).all()),
+                        f'eva_fused aux fold={fold} {tag}: err '
+                        f'{ea.max().item():.3e}')
+                if on_path and name == 'float32':
+                    err['eva_fused'] = max(err['eva_fused'],
+                                           (out - o_want).abs().max().item())
+            # fused (fold off) against the composed kernels; in f32 only,
+            # since the composed P is rounded to G's dtype
+            ec = torch.zeros(())
+            if name == 'float32':
+                out, _ = fused.eva_fused_stacked(g, a, b, GAMMA, m, MU, False)
+                comp = r1.rank1_update_stacked(g, a, b,
+                                               _cs(torch, g, a, b, dot))
+                ec = (GAMMA * out - GAMMA * comp).abs()
+                require(bool((ec <= FUSED_TOL + FUSED_TOL *
+                              (GAMMA * comp).abs()).all()),
+                        f'eva_fused vs composed {tag}: err '
+                        f'{ec.max().item():.3e}')
+            # stacked ≡ per item, bit for bit
+            if shape[0] > 1:
+                out_s, aux_s = fused.eva_fused_stacked(g, a, b, GAMMA, m, MU,
+                                                       True)
+                for i in range(shape[0]):
+                    sl = slice(i, i + 1)
+                    d1, s1 = bil.bilinear_and_norms_stacked(g[sl], a[sl],
+                                                            b[sl])
+                    require(torch.equal(d1, dot[sl]) and
+                            torch.equal(s1, sq[sl]),
+                            f'bilinear stacked != item {i} {tag}')
+                    require(torch.equal(r1.rank1_update_stacked(
+                        g[sl], a[sl], b[sl], cs[sl]), p[sl]),
+                        f'rank1_update stacked != item {i} {tag}')
+                    o1, x1 = fused.eva_fused_stacked(g[sl], a[sl], b[sl],
+                                                     GAMMA, m[sl], MU, True)
+                    require(torch.equal(o1, out_s[sl]) and
+                            torch.equal(x1, aux_s[sl]),
+                            f'eva_fused stacked != item {i} {tag}')
+                    # the composed op on a bucket stack against one leaf
+                    require(torch.equal(
+                        ops.eva_precondition(g[i], a[i], b[i], GAMMA),
+                        ops.eva_precondition(g, a, b, GAMMA)[i]),
+                        f'ops.eva_precondition stacked != leaf {i} {tag}')
+            if on_path and name == 'float32':
+                err['bilinear'] = max(err['bilinear'], e.max().item())
+                err['rank1_update'] = max(err['rank1_update'],
+                                          ep.max().item())
+            print(f'  ok {tag}: bilinear err {e.max().item():.2e}, '
+                  f'rank1 err {ep.max().item():.2e}, fused-vs-composed '
+                  f'{ec.max().item():.2e}', flush=True)
+    torch.cuda.synchronize()
+    return err
+
+
+# ---------------------------------------------------------------------------
+# 4. the main path: full-width autoencoder, composed and fused
+
+
+def _train(torch, model, params0, batches, *, fused, impl, lr):
+    from repro_torch.core.registry import make_optimizer
+    from repro_torch.train.step import init_opt_state, make_train_step
+    opt, cap = make_optimizer('eva', lr=lr, fused=fused, kernel_impl=impl)
+    state = init_opt_state(model, opt, cap, params0, batches[0],
+                           device='cuda')
+    step = make_train_step(model, opt, cap, device='cuda')
+    params, losses = params0, []
+    for batch in batches:
+        params, state, metrics = step(params, state, batch)
+        losses.append(metrics['loss'])
+    return torch.stack(losses).cpu().tolist(), step, params, state
+
+
+def _compare_trajectories(kernel, plain, what):
+    for i, (k, p) in enumerate(zip(kernel, plain)):
+        require(abs(k - p) <= TRAJ_RTOL * abs(p),
+                f'{what}: step {i} loss {k!r} (kernels) vs {p!r} (plain), '
+                f'beyond {TRAJ_RTOL} relative')
+
+
+def ae_setup(torch):
+    from repro_torch.data.synthetic import AEStream
+    from repro_torch.models import module as M
+    from repro_torch.models.simple import ae_loss_fn, autoencoder
+    model = autoencoder()
+    model.loss_fn = ae_loss_fn(model)
+    params0 = M.init_params(model.param_specs(),
+                            torch.Generator().manual_seed(0), device='cuda')
+    data = AEStream(batch=1000, device='cuda')
+    batches = [data.batch_at(i) for i in range(STEPS)]
+    return model, params0, batches
+
+
+def main_phase(torch, model, params0, batches):
+    phase('4 main path: Eva on the full-width autoencoder')
+    from repro_torch.kernels import launches
+    n_layers = len(model.dims) - 1
+    counts, traj = {}, {}
+    for fused in (False, True):
+        launches.reset()
+        losses, *_ = _train(torch, model, params0, batches, fused=fused,
+                            impl='auto', lr=0.15)
+        got = launches.snapshot()
+        want = ({'bilinear': 0, 'rank1_update': 0, 'eva_fused': n_layers}
+                if fused else {'bilinear': n_layers, 'rank1_update': n_layers,
+                               'eva_fused': 0})
+        want = {k: v * STEPS for k, v in want.items()}
+        require(got == want, f'fused={fused}: launches {got} != {want}')
+        counts.update({k: v for k, v in got.items() if v})
+        require(all(map(lambda x: x == x and abs(x) < float('inf'), losses)),
+                f'fused={fused}: non-finite loss {losses}')
+        require(losses[-1] < losses[0],
+                f'fused={fused}: loss did not fall ({losses[0]} -> '
+                f'{losses[-1]})')
+        launches.reset()
+        plain, *_ = _train(torch, model, params0, batches, fused=fused,
+                           impl='torch', lr=0.15)
+        require(sum(launches.snapshot().values()) == 0,
+                "impl='torch' launched a kernel")
+        _compare_trajectories(losses, plain, f'autoencoder fused={fused}')
+        traj[fused] = (losses, plain)
+        print(f'  fused={fused}: launches {got}; loss {losses[0]:.6f} -> '
+              f'{losses[-1]:.6f}; max rel diff to plain '
+              f'{max(abs(k - p) / abs(p) for k, p in zip(losses, plain)):.2e}',
+              flush=True)
+    print(json.dumps({'ae_losses': {
+        'composed_cuda': traj[False][0], 'composed_torch': traj[False][1],
+        'fused_cuda': traj[True][0], 'fused_torch': traj[True][1]}}))
+    return counts
+
+
+# ---------------------------------------------------------------------------
+# 5. a stacked bucket
+
+
+def stacked_phase(torch):
+    phase('5 stacked bucket: MLP 784-1000-1000-1000-1000-10')
+    from repro_torch.core import bucketing
+    from repro_torch.data.synthetic import ClassStream
+    from repro_torch.kernels import launches
+    from repro_torch.models import module as M
+    from repro_torch.models.simple import MLP, classifier_loss_fn
+    model = MLP([784, 1000, 1000, 1000, 1000, 10])
+    model.loss_fn = classifier_loss_fn(model)
+    params0 = M.init_params(model.param_specs(),
+                            torch.Generator().manual_seed(1), device='cuda')
+    plan = bucketing.build_plan({p: params0[p]
+                                 for p in sorted(model.precon_paths())})
+    stacked = [b.key for b in plan.buckets if b.stacked]
+    require(stacked == ['float32_1000x1000'], f'stacked buckets {stacked}')
+    data = ClassStream(batch=512, dim=784, classes=10, device='cuda')
+    batches = [data.batch_at(i) for i in range(5)]
+    per_step = len(plan.buckets)         # one call per bucket or 1-path leaf
+    for fused in (False, True):
+        launches.reset()
+        losses, *_ = _train(torch, model, params0, batches, fused=fused,
+                            impl='auto', lr=0.1)
+        got = launches.snapshot()
+        names = ('eva_fused',) if fused else ('bilinear', 'rank1_update')
+        require(all(got[k] == per_step * len(batches) for k in names),
+                f'stacked fused={fused}: launches {got}')
+        plain, *_ = _train(torch, model, params0, batches, fused=fused,
+                           impl='torch', lr=0.1)
+        _compare_trajectories(losses, plain, f'MLP fused={fused}')
+        require(losses[-1] < losses[0], f'MLP fused={fused}: loss did not '
+                f'fall ({losses[0]} -> {losses[-1]})')
+        print(f'  fused={fused}: buckets {[b.key for b in plan.buckets]}; '
+              f'launches {got}; loss {losses[0]:.4f} -> {losses[-1]:.4f}',
+              flush=True)
+
+
+# ---------------------------------------------------------------------------
+# 6. times
+
+
+def _time_ms(torch, fn, iters, repeats=3):
+    """Median over ``repeats`` of the mean ms per call of ``fn`` between two
+    CUDA events, after warm-up.  Host launch gaps count: the card waits for
+    them too."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    means = []
+    for _ in range(repeats):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(iters):
+            fn()
+        e1.record()
+        e1.synchronize()
+        means.append(e0.elapsed_time(e1) / iters)
+    return statistics.median(means)
+
+
+def _graph_ms(torch, fn, iters):
+    """The same, with ``fn`` captured into a CUDA graph and replayed: the
+    device time without the host's launch cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return _time_ms(torch, graph.replay, iters)
+
+
+def _bound(n_bytes, n_flops):
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_flops / F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ('bytes' if t_bytes >= t_ops
+                                       else 'operations')
+
+
+def times_phase(torch, err, counts, model, params0, batches):
+    phase('6 times at the autoencoder shapes (one step = 8 layers)')
+    from repro_torch.kernels import bilinear as bil
+    from repro_torch.kernels import fused, ref
+    from repro_torch.kernels import rank1_update as r1
+    iters = 100
+    layers = []
+    for seed, (d_in, d_out) in enumerate(AE_SHAPES):
+        g, a, b, m = _inputs(torch, (d_in, d_out), torch.float32, 100 + seed)
+        cs = _cs(torch, g, a, b, ref.bilinear_ref(g, a, b))
+        c, s = cs.tolist()
+        layers.append((g, a, b, m, cs, c, s))
+    n = sum(d_in * d_out for d_in, d_out in AE_SHAPES)
+    vec = sum(d_in + d_out for d_in, d_out in AE_SHAPES)
+    k = len(AE_SHAPES)
+    work = {  # bytes: each input read once, each output written once
+        'bilinear': (4 * (n + vec + k), 3 * n),
+        'rank1_update': (4 * (2 * n + vec + 2 * k), 4 * n),
+        'eva_fused': (4 * (3 * n + vec + 3 * k), 15 * n),
+    }
+    fns = {
+        'bilinear': (
+            lambda: [bil.bilinear(g, a, b) for g, a, b, *_ in layers],
+            lambda: [ref.bilinear_ref(g, a, b) for g, a, b, *_ in layers],
+            lambda: [torch.einsum('io,i,o->', g, a, b)
+                     for g, a, b, *_ in layers]),
+        'rank1_update': (
+            lambda: [r1.rank1_update(g, a, b, cs)
+                     for g, a, b, m, cs, c, s in layers],
+            lambda: [ref.rank1_update_ref(g, a, b, cs[0], cs[1])
+                     for g, a, b, m, cs, c, s in layers],
+            lambda: [torch.addr(g, a, b, beta=s, alpha=-c * s)
+                     for g, a, b, m, cs, c, s in layers]),
+        'eva_fused': (
+            lambda: [fused.eva_fused_stacked(g[None], a[None], b[None], GAMMA,
+                                             m[None], MU, True)
+                     for g, a, b, m, *_ in layers],
+            lambda: [ref.eva_fused_ref(g, a, b, GAMMA, m, MU, True)
+                     for g, a, b, m, *_ in layers],
+            None),
+    }
+    meta = {
+        'bilinear': ('src/repro_torch/kernels/csrc/bilinear.cu',
+                     'src/repro/kernels/bilinear.py:76', [1, 2]),
+        'rank1_update': ('src/repro_torch/kernels/csrc/rank1_update.cu',
+                         'src/repro/kernels/rank1_update.py:51', [3, 4]),
+        'eva_fused': ('src/repro_torch/kernels/csrc/eva_fused.cu',
+                      'src/repro/kernels/fused.py:142', [5]),
+    }
+    rows = []
+    for name, (kern, plain, lib) in fns.items():
+        bound_ms, bound_by = _bound(*work[name])
+        row = {
+            'name': name, 'route': 'cuda', 'source': meta[name][0],
+            'replaces': meta[name][1], 'jax_rows': meta[name][2],
+            'launches': counts.get(name, 0),
+            'launches_per_step': counts.get(name, 0) // STEPS,
+            'max_abs_err': err[name],
+            'ms': _time_ms(torch, kern, iters),
+            'graph_ms': _graph_ms(torch, kern, iters),
+            'plain_ms': _time_ms(torch, plain, iters),
+            'plain_graph_ms': _graph_ms(torch, plain, iters),
+            'bound_ms': bound_ms, 'bound_by': bound_by,
+            'library_ms': None if lib is None else _time_ms(torch, lib, iters),
+        }
+        rows.append(row)
+        print(f'  {name}: ' + ', '.join(
+            f'{key} {row[key]:.4f}' for key in
+            ('ms', 'graph_ms', 'plain_ms', 'plain_graph_ms', 'bound_ms')),
+            flush=True)
+
+    steps = _step_times(torch, model, params0, batches)
+    print(json.dumps({'ae_step_ms': steps}))
+    print(json.dumps({'ae_profile': _profile(torch, model, params0, batches,
+                                             steps)}))
+    return rows
+
+
+def _median_spread(xs):
+    return {'median': statistics.median(xs), 'min': min(xs), 'max': max(xs)}
+
+
+def _step_times(torch, model, params0, batches, rounds=5, per_round=10):
+    """ms per step on the host clock (each timed window ends in a
+    synchronize): the forward + backward alone, and the composed and fused
+    steps with the kernels and with the plain path.  The variants run in
+    turns, the order reversed every round, and each reports its median and
+    range over the rounds."""
+    from repro_torch.core import kv
+    from repro_torch.train.step import compute_grads_and_stats
+
+    def grads_only(state):
+        for batch in batches[:per_round]:
+            compute_grads_and_stats(model, params0, batch, kv.EVA_CAPTURE)
+        return state
+
+    runs = {'grads_only_ms': grads_only}
+    for fused_flag in (False, True):
+        for impl in ('auto', 'torch'):
+            *_, step, params, state = _train(torch, model, params0,
+                                             batches[:3], fused=fused_flag,
+                                             impl=impl, lr=0.15)
+            carry = {'params': params, 'state': state}
+
+            def run(_, step=step, carry=carry):
+                for batch in batches[:per_round]:
+                    carry['params'], carry['state'], _m = step(
+                        carry['params'], carry['state'], batch)
+            key = f'{"fused" if fused_flag else "composed"}_' \
+                  f'{"cuda" if impl == "auto" else "torch"}_ms'
+            runs[key] = run
+    times = {k: [] for k in runs}
+    for r in range(rounds):
+        for key in (list(runs) if r % 2 == 0 else list(reversed(runs))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            runs[key](None)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3 / per_round)
+    return {k: _median_spread(v) for k, v in times.items()}
+
+
+def _profile(torch, model, params0, batches, steps, n=10):
+    """torch.profiler over ``n`` steps of each path: device time by kernel
+    (device-side events only, so no op is counted twice) and the device's
+    idle share of the unprofiled median step time.  Where the trace holds
+    no device time, says so instead of a number."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    out = {}
+    for fused_flag in (False, True):
+        *_, step, params, state = _train(torch, model, params0, batches[:3],
+                                         fused=fused_flag, impl='auto',
+                                         lr=0.15)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for batch in batches[:n]:
+                params, state, _ = step(params, state, batch)
+            torch.cuda.synchronize()
+        by_kernel = {}
+        for evt in prof.key_averages():
+            if evt.device_type != DeviceType.CUDA:
+                continue
+            by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + \
+                evt.self_device_time_total / n
+        busy_us = sum(by_kernel.values())
+        key = 'fused' if fused_flag else 'composed'
+        step_ms = steps[f'{key}_cuda_ms']['median']
+        top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
+        out[key] = {
+            'device_kernels_per_step': sum(
+                e.count for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA) / n,
+            'device_busy_ms_per_step': busy_us / 1e3 if busy_us
+            else 'not measured',
+            'device_idle_share': 1.0 - busy_us / 1e3 / step_ms if busy_us
+            else 'not measured',
+            'top_device_us_per_step': {k[:80]: v for k, v in top},
+        }
+    return out
+
+
+def main() -> None:
+    if not (SRC / 'repro_torch' / 'kernels' / 'csrc').is_dir():
+        fail(f'no src/repro_torch beside {Path(__file__).name}: run it from '
+             'the root of a checkout of the repository')
+    sys.path.insert(0, str(SRC))
+    import torch
+    smi = device_phase(torch)
+    t0 = time.perf_counter()
+    build_phase()
+    err = kernels_phase(torch)
+    model, params0, batches = ae_setup(torch)
+    counts = main_phase(torch, model, params0, batches)
+    stacked_phase(torch)
+    rows = times_phase(torch, err, counts, model, params0, batches)
+    print(f'total {time.perf_counter() - t0:.1f} s after device check')
+    print(json.dumps({'kernels': rows}))
+    print(smi)
+    print(json.dumps({'ok': True, 'device': {
+        'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
+        'count': torch.cuda.device_count()}}))
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,36 @@
+"""Optimizer registry: name -> (factory, CaptureConfig) — PyTorch port.
+
+``make_optimizer('eva', lr=0.15)`` is the entry point, as in
+``repro/core/registry.py``; the port has ``eva`` and ``sgd`` so far.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+from repro_torch.core import kv as kvlib
+from repro_torch.core.eva import CAPTURE as _EVA_CAP
+from repro_torch.core.eva import eva as _eva_fn
+from repro_torch.core.firstorder import CAPTURE as _SGD_CAP
+from repro_torch.core.firstorder import sgd as _sgd_fn
+from repro_torch.core.transform import GradientTransformation
+
+_REGISTRY: dict[str, tuple[Any, kvlib.CaptureConfig]] = {
+    'eva': (_eva_fn, _EVA_CAP),
+    'sgd': (_sgd_fn, _SGD_CAP),
+}
+
+
+def optimizer_names() -> list[str]:
+    return sorted(_REGISTRY)
+
+
+def capture_for(name: str) -> kvlib.CaptureConfig:
+    return _REGISTRY[name][1]
+
+
+def make_optimizer(name: str, **kwargs
+                   ) -> tuple[GradientTransformation, kvlib.CaptureConfig]:
+    if name not in _REGISTRY:
+        raise KeyError(f'unknown optimizer {name!r}; have {optimizer_names()}')
+    factory, capture = _REGISTRY[name]
+    return factory(**kwargs), capture

@@ -1,0 +1,81 @@
+// Shared device code of the port's Eva kernels (bilinear.cu, rank1_update.cu,
+// eva_fused.cu).
+//
+// Work partition.  Every kernel cuts each stack item's flattened G
+// (d_in * d_out elements, row-major) into contiguous chunks of kChunk
+// elements and gives one block of kThreads threads to each (chunk, item)
+// pair: grid = (chunks, L).  Thread t of a block visits the chunk's elements
+// t, t + kThreads, t + 2 kThreads, ... so neighbouring threads read
+// neighbouring addresses.  The partition depends on d_in * d_out alone, never
+// on L, so an item of a stack is reduced exactly as it would be alone: the
+// stacked and per-item launches agree bit for bit.
+//
+// Reductions are deterministic: a fixed warp-shuffle tree inside each warp,
+// then the warp sums in a fixed order, one f32 partial per block written to
+// scratch, and a second launch (repro_sum_partials) that sums each item's
+// partials in a fixed order.  No float atomics anywhere.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace repro {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kChunk = 8192;  // elements of one item per block (32 per thread)
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x);
+template <>
+__device__ __forceinline__ float from_f32<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+// Sums K values per thread over the block in a fixed order.  The totals are
+// valid in thread 0 only.  Every thread of the block must call it.
+template <int K>
+__device__ __forceinline__ void block_sum(float (&v)[K]) {
+  __shared__ float warp_sums[K][kWarps];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+    if (lane == 0) warp_sums[k][warp] = v[k];
+  }
+  __syncthreads();
+  if (warp == 0) {
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      v[k] = lane < kWarps ? warp_sums[k][lane] : 0.0f;
+#pragma unroll
+      for (int off = kWarps / 2; off > 0; off >>= 1)
+        v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
+    }
+  }
+}
+
+inline int num_chunks(long long n) {
+  return static_cast<int>((n + kChunk - 1) / kChunk);
+}
+
+}  // namespace repro
+
+// Each source compiles into a shared library of its own, so each carries one
+// copy of this.
+extern "C" const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}

@@ -1,0 +1,70 @@
+"""Kernel dispatch: pick the CUDA kernel or the plain PyTorch version.
+
+Counterpart of ``repro/kernels/dispatch.py``, with three impls:
+
+  * ``'cuda'``  — the hand-written Hopper kernels (``csrc/*.cu``).  Given a
+                  CPU tensor, their wrappers run the plain version instead.
+  * ``'torch'`` — the plain versions in ``ref.py``, on any device.  On a CUDA
+                  tensor this path is taken only when the caller names it;
+                  a failed build or launch raises, it never falls back here.
+  * ``'auto'``  — ``'cuda'`` for a CUDA tensor, ``'torch'`` for a CPU one.
+
+Autotuning and the tile cache of the reference wait for a later change: the
+CUDA kernels have one fixed partition (``csrc/common.cuh``).  Launch counts
+live in ``launches.py``.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import bilinear as _bil
+from repro_torch.kernels import fused as _fused
+from repro_torch.kernels import rank1_update as _r1
+from repro_torch.kernels import ref
+
+IMPLS = ('auto', 'cuda', 'torch')
+
+
+def resolve(impl: str, g: torch.Tensor) -> str:
+    """The concrete impl ('cuda' | 'torch') for an operand ``g``."""
+    if impl not in IMPLS:
+        raise ValueError(f'unknown kernel impl {impl!r}; have {IMPLS}')
+    if impl == 'auto':
+        return 'cuda' if g.is_cuda else 'torch'
+    return impl
+
+
+def bilinear_and_norms(g, a, b, impl: str = 'auto'):
+    """(aᵀ G b, [‖a‖², ‖b‖²]) for g (d_in, d_out): () and (2,) f32."""
+    if resolve(impl, g) == 'torch':
+        return ref.bilinear_and_norms_ref(g, a, b)
+    return _bil.bilinear_and_norms(g, a, b)
+
+
+def bilinear_and_norms_stacked(g, a, b, impl: str = 'auto'):
+    """The same for a stack g (L, d_in, d_out): (L,) and (L, 2) f32."""
+    if resolve(impl, g) == 'torch':
+        return ref.bilinear_and_norms_ref(g, a, b)
+    return _bil.bilinear_and_norms_stacked(g, a, b)
+
+
+def rank1_update(g, a, b, coeff, scale, impl: str = 'auto'):
+    """coeff/scale: 0-d f32 tensors on g's device."""
+    if resolve(impl, g) == 'torch':
+        return ref.rank1_update_ref(g, a, b, coeff, scale)
+    return _r1.rank1_update(g, a, b, torch.stack([coeff, scale]))
+
+
+def rank1_update_stacked(g, a, b, coeff, scale, impl: str = 'auto'):
+    """coeff/scale: (L,) f32 tensors on g's device."""
+    if resolve(impl, g) == 'torch':
+        return ref.rank1_update_ref(g, a, b, coeff, scale)
+    return _r1.rank1_update_stacked(g, a, b, torch.stack([coeff, scale], -1))
+
+
+def eva_fused_stacked(g, a, b, gamma: float, m, mu: float,
+                      fold_momentum: bool = True, impl: str = 'auto'):
+    """Fused Eva precondition + epilogue; ``(out, aux)`` as in ``fused.py``."""
+    if resolve(impl, g) == 'torch':
+        return ref.eva_fused_ref(g, a, b, gamma, m, mu, fold_momentum)
+    return _fused.eva_fused_stacked(g, a, b, gamma, m, mu, fold_momentum)

@@ -1,0 +1,75 @@
+"""Plain PyTorch versions of the Eva kernels — the CPU path and the oracle.
+
+Counterpart of ``repro/kernels/ref.py``.  Layouts: g (..., d_in, d_out),
+a (..., d_in), b (..., d_out); any leading stack dims broadcast.  Every
+reduction is in f32 whatever the input dtype, as in the kernels.
+``dispatch.py`` routes the ``'torch'`` impl here, and the kernel wrappers
+take these for tensors that lie on the CPU.
+"""
+from __future__ import annotations
+
+import torch
+
+F32 = torch.float32
+
+
+def _as_f32(x, like: torch.Tensor) -> torch.Tensor:
+    return torch.as_tensor(x, dtype=F32, device=like.device)
+
+
+def bilinear_ref(g, a, b):
+    """aᵀ G b — one scalar per leading index.  -> (...) f32."""
+    return torch.einsum('...io,...i,...o->...', g.to(F32), a.to(F32),
+                        b.to(F32))
+
+
+def bilinear_and_norms_ref(g, a, b):
+    """(aᵀ G b, [‖a‖², ‖b‖²]) -> ((...) f32, (..., 2) f32)."""
+    a32, b32 = a.to(F32), b.to(F32)
+    sq = torch.stack([(a32 * a32).sum(-1), (b32 * b32).sum(-1)], dim=-1)
+    return bilinear_ref(g, a, b), sq
+
+
+def rank1_update_ref(g, a, b, coeff, scale):
+    """P = scale · (G − coeff · a bᵀ); coeff/scale scalar or (...,).
+
+    Computed in f32; returns G's dtype."""
+    coeff = _as_f32(coeff, g)[..., None, None]
+    scale = _as_f32(scale, g)[..., None, None]
+    outer = a.to(F32)[..., :, None] * b.to(F32)[..., None, :]
+    return (scale * (g.to(F32) - coeff * outer)).to(g.dtype)
+
+
+def eva_precondition_ref(g, a, b, gamma: float):
+    """Eq. 13 as the composition bilinear → rank1_update."""
+    dot = bilinear_ref(g, a, b)
+    a32, b32 = a.to(F32), b.to(F32)
+    denom = gamma + (a32 * a32).sum(-1) * (b32 * b32).sum(-1)
+    return rank1_update_ref(g, a, b, dot / denom,
+                            torch.full_like(denom, 1.0 / gamma))
+
+
+def _fused_epilogue(g32, p, m, mu, fold_momentum):
+    out = mu * m.to(F32) + p if fold_momentum else p
+    aux = torch.stack([(out * g32).sum((-2, -1)),
+                       (out * out).sum((-2, -1)),
+                       (g32 * g32).sum((-2, -1))], dim=-1)
+    return out, aux
+
+
+def eva_fused_ref(g, a, b, gamma: float, m, mu: float,
+                  fold_momentum: bool = True):
+    """Plain twin of the fused kernel (``kernels/fused.py``).
+
+    Returns ``(out, aux)``: out (..., d_in, d_out) f32 = μ·m + P (or P when
+    ``fold_momentum`` is off); aux (..., 3) f32 = [⟨out,g⟩, ⟨out,out⟩,
+    ⟨g,g⟩] per leading index.
+    """
+    g32 = g.to(F32)
+    a32, b32 = a.to(F32), b.to(F32)
+    dot = bilinear_ref(g, a, b)
+    denom = gamma + (a32 * a32).sum(-1) * (b32 * b32).sum(-1)
+    coeff = (dot / denom)[..., None, None]
+    # multiply by the reciprocal, as the kernel's scale operand does
+    p = (1.0 / gamma) * (g32 - coeff * (a32[..., :, None] * b32[..., None, :]))
+    return _fused_epilogue(g32, p, m, mu, fold_momentum)

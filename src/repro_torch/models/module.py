@@ -1,0 +1,82 @@
+"""Parameter specs and initialization — PyTorch port of
+``repro/models/module.py``.
+
+Parameters are flat dicts of tensors keyed by the reference's paths
+(``'fc0/w'``), in the reference's (d_in, d_out) weight layout.  Weights come
+from an explicit ``torch.Generator`` (``init_params``) or, to compare with
+the reference, from its own ``init_params`` output as numpy
+(``params_from_numpy``).
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch.core.transform import tree_leaves_with_path
+from repro_torch.device import resolve_device
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamSpec:
+    """Shape, dtype and initializer of one parameter.  The reference's
+    logical sharding axes and stddev override are not ported."""
+    shape: tuple[int, ...]
+    dtype: Any = torch.float32
+    init: str = 'scaled'          # scaled | zeros
+
+
+def flatten_specs(specs: Any, prefix: str = '') -> dict[str, ParamSpec]:
+    out = {}
+    if isinstance(specs, dict):
+        for k, v in specs.items():
+            key = f'{prefix}/{k}' if prefix else str(k)
+            out.update(flatten_specs(v, key))
+    else:
+        out[prefix] = specs
+    return out
+
+
+def _init_one(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
+    if spec.init == 'zeros':
+        return torch.zeros(spec.shape, dtype=spec.dtype)
+    if spec.init == 'scaled':  # fan-in scaled (1/sqrt(d_in) over dim -2)
+        fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
+        std = 1.0 / math.sqrt(fan_in)
+        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32) * std
+        return x.to(spec.dtype)
+    raise ValueError(f'init {spec.init!r} is not ported; have scaled, zeros')
+
+
+def init_params(specs: Any, generator: torch.Generator,
+                device='cuda') -> dict[str, torch.Tensor]:
+    """Materialize a spec tree as flat ``{path: tensor}``: one draw per path
+    in sorted path order from a CPU ``generator``, then moved to
+    ``device`` (so a seed gives the same weights on every device)."""
+    dev = resolve_device(device)
+    flat = flatten_specs(specs)
+    return {p: _init_one(flat[p], generator).to(dev) for p in sorted(flat)}
+
+
+def params_from_numpy(flat: dict[str, np.ndarray],
+                      device) -> dict[str, torch.Tensor]:
+    """The port's parameters from ``{path: array}`` (e.g. the reference's
+    ``init_params`` output, flattened and converted to numpy)."""
+    dev = resolve_device(device)
+    return {p: torch.from_numpy(np.array(v, copy=True)).to(dev)
+            for p, v in sorted(flat.items())}
+
+
+def params_to_numpy(params: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
+    return {p: v.detach().cpu().numpy() for p, v in params.items()}
+
+
+def state_to_numpy(state: Any) -> dict[str, np.ndarray]:
+    """Optimizer state as ``{path: array}``: NamedTuple fields by name,
+    tuple entries by index, dict keys joined with '/', None dropped — the
+    same paths a like walk over the reference's state gives."""
+    return {p: v.detach().cpu().numpy()
+            for p, v in tree_leaves_with_path(state).items()}

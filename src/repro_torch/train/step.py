@@ -1,0 +1,145 @@
+"""Train-step factory: loss → (grads, tap-grads) → KV stats → optimizer.
+
+PyTorch port of ``compute_grads_and_stats``, ``make_train_step`` and
+``init_opt_state`` in ``repro/train/step.py``.  The step runs eagerly and
+returns new parameters and state without touching its inputs.  Nothing in it
+reads a value back to the host, so a step only queues work on the card; the
+caller syncs when it reads a metric.
+
+The entry points take ``device=`` (default ``'cuda'``); without a card they
+raise unless the caller passes ``device='cpu'``.
+"""
+from __future__ import annotations
+
+from typing import Callable, Optional
+
+import torch
+
+from repro_torch.core import bucketing
+from repro_torch.core import kv as kvlib
+from repro_torch.core.transform import (Extras, GradientTransformation,
+                                        apply_updates, tree_map)
+from repro_torch.device import resolve_device
+from repro_torch.schedule import runtime as schedrt
+
+F32 = torch.float32
+
+
+def _plan_for_stats(params_or_grads, stats
+                    ) -> Optional[bucketing.BucketPlan]:
+    """The bucket plan over the captured (= preconditioned) paths."""
+    if stats is None:
+        return None
+    flat = kvlib.flatten_params(params_or_grads)
+    return bucketing.build_plan({p: flat[p] for p in stats if p in flat})
+
+
+def _taps(model, params, capture: kvlib.CaptureConfig):
+    """Zero (d_out,) vector taps for every preconditioned path.  The
+    reference takes a ``taps_fn`` for its K-FAC capture, whose taps are
+    batch-shaped; with vector taps only, the shapes follow from the
+    weights."""
+    if not capture.needs_taps:
+        return None
+    return kvlib.make_vector_taps(params, set(model.precon_paths()) &
+                                  set(params))
+
+
+def _to_device(batch: dict, device: torch.device) -> dict:
+    return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+
+
+def compute_grads_and_stats(model, params: dict, batch: dict,
+                            capture: kvlib.CaptureConfig):
+    """(loss, grads, stats): one forward and backward of ``model.loss_fn``.
+
+    b̄ is the gradient of each zero tap, taken by the same backward pass as
+    the weight gradients."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    taps = _taps(model, params, capture)
+    if taps is not None:
+        taps = {k: t.requires_grad_(True) for k, t in taps.items()}
+    loss, aux = model.loss_fn(leaves, taps, batch, capture)
+    inputs = list(leaves.values()) + (list(taps.values()) if taps else [])
+    got = torch.autograd.grad(loss, inputs)
+    grads = dict(zip(leaves, got[:len(leaves)]))
+    tap_grads = dict(zip(taps, got[len(leaves):])) if taps else None
+    stats = None
+    if capture.active:
+        stats = kvlib.finalize_stats(aux['stats'], tap_grads, capture)
+    return loss.detach(), grads, stats
+
+
+def _sum_tree(acc, tree):
+    return tree if acc is None else tree_map(lambda a, x: a + x, acc, tree)
+
+
+def make_train_step(model, opt: GradientTransformation,
+                    capture: kvlib.CaptureConfig,
+                    microbatches: int = 1,
+                    sched: Optional[schedrt.RefreshRuntime] = None,
+                    device='cuda') -> Callable:
+    """Build ``train_step(params, opt_state, batch) -> (params, state,
+    metrics)``.
+
+    ``microbatches > 1`` splits the batch on dim 0 and accumulates: grads
+    summed in f32, KV stats summed, both (and the loss) divided by the
+    count, as the reference's scan.  ``sched`` is the refresh runtime
+    threaded through ``Extras``.
+    """
+    dev = resolve_device(device)
+    sched = sched if sched is not None else schedrt.RefreshRuntime()
+
+    def grads_of(params, batch):
+        return compute_grads_and_stats(model, params, batch, capture)
+
+    def train_step(params, opt_state, batch):
+        batch = _to_device(batch, dev)
+        if microbatches > 1:
+            g_sum = s_sum = None
+            l_sum = torch.zeros((), dtype=F32, device=dev)
+            parts = {k: v.reshape((microbatches, v.shape[0] // microbatches)
+                                  + tuple(v.shape[1:]))
+                     for k, v in batch.items()}
+            for i in range(microbatches):
+                loss, grads, stats = grads_of(
+                    params, {k: v[i] for k, v in parts.items()})
+                g_sum = _sum_tree(g_sum, tree_map(lambda g: g.to(F32), grads))
+                if stats is not None:
+                    s_sum = _sum_tree(s_sum, tree_map(lambda s: s.to(F32),
+                                                      stats))
+                l_sum = l_sum + loss
+            inv = 1.0 / microbatches
+            grads = tree_map(lambda g: g * inv, g_sum)
+            stats = tree_map(lambda s: s * inv, s_sum)
+            loss = l_sum * inv
+        else:
+            loss, grads, stats = grads_of(params, batch)
+        updates, new_state = opt.update(
+            grads, opt_state, params=params,
+            extras=Extras(stats=stats, loss=loss,
+                          plan=_plan_for_stats(grads, stats), sched=sched))
+        new_params = apply_updates(params, updates)
+        grad_norm = torch.sqrt(sum((g.to(F32) ** 2).sum()
+                                   for _, g in sorted(grads.items())))
+        return new_params, new_state, {'loss': loss, 'grad_norm': grad_norm}
+
+    return train_step
+
+
+def init_opt_state(model, opt: GradientTransformation,
+                   capture: kvlib.CaptureConfig, params: dict, batch: dict,
+                   sched: Optional[schedrt.RefreshRuntime] = None,
+                   device='cuda'):
+    """Materialized optimizer state.  The stats' shapes come from one
+    forward/backward pass on ``batch``; the state holds zeros of them."""
+    dev = resolve_device(device)
+    sched = sched if sched is not None else schedrt.RefreshRuntime()
+    if not capture.active:
+        return opt.init(params, Extras(sched=sched))
+    _, _, stats = compute_grads_and_stats(model, params,
+                                          _to_device(batch, dev), capture)
+    zero_stats = tree_map(torch.zeros_like, stats)
+    return opt.init(params, Extras(stats=zero_stats,
+                                   plan=_plan_for_stats(params, zero_stats),
+                                   sched=sched))

@@ -1,0 +1,71 @@
+"""The port stands alone: no module of ``src/repro_torch`` nor
+``chip_smoke.py`` imports JAX or the reference package, and the entry points
+run on the card unless the caller asks for the CPU."""
+import ast
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip('torch')
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / 'src' / 'repro_torch').rglob('*.py')) + \
+    [ROOT / 'chip_smoke.py']
+BANNED = ('jax', 'jaxlib', 'repro')
+
+
+def _imports(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (alias.name for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize('path', PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_no_jax_or_reference_import(path):
+    bad = [m for m in _imports(path) if m.split('.')[0] in BANNED]
+    assert not bad, f'{path.relative_to(ROOT)} imports {bad}'
+
+
+def test_port_files_found():
+    names = {p.name for p in PORT_FILES}
+    assert {'eva.py', 'step.py', 'dispatch.py', 'chip_smoke.py'} <= names
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default device is usable')
+
+
+def test_entry_points_default_to_the_card():
+    """Without CUDA, an entry point called without device='cpu' raises."""
+    _no_card()
+    from repro_torch.core.registry import make_optimizer
+    from repro_torch.models import module as M
+    from repro_torch.models.simple import ae_loss_fn, autoencoder
+    from repro_torch.train.step import init_opt_state, make_train_step
+    model = autoencoder((8, 4, 8), d_in=16)
+    model.loss_fn = ae_loss_fn(model)
+    opt, cap = make_optimizer('eva')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_train_step(model, opt, cap)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        M.init_params(model.param_specs(), torch.Generator().manual_seed(0))
+    params = M.init_params(model.param_specs(),
+                           torch.Generator().manual_seed(0), device='cpu')
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_opt_state(model, opt, cap, params,
+                       {'x': torch.zeros(2, 16)})
+
+
+def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):
+    """No fallback: without nvcc the build raises."""
+    from repro_torch.kernels import build
+    monkeypatch.setenv('PATH', str(tmp_path))
+    monkeypatch.setattr(build, 'BUILD_ROOT', tmp_path / 'build')
+    if Path('/usr/local/cuda/bin/nvcc').exists():
+        pytest.skip('the CUDA toolkit is installed at its fixed path')
+    with pytest.raises(RuntimeError, match='nvcc not found'):
+        build.build_all()

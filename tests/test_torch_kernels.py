@@ -1,0 +1,165 @@
+"""The port's kernel wrappers against the JAX Pallas kernels (interpret
+mode), kernel rows 1-5: bilinear[_stacked], rank1_update[_stacked] and
+eva_fused_stacked.  On a CPU tensor a wrapper runs its plain PyTorch version
+and launches nothing; the CUDA kernels themselves are held against the same
+plain versions on the card (marked ``gpu``, and by ``chip_smoke.py``).
+
+Tolerances: 1e-5 (f32) and 3e-2 (bf16) as ``tests/test_kernels.py``; a
+bilinear sum is held against its own scale Σ|a_i G_ij b_j|; the fused output
+to 1e-6 on the γ-scaled values and its aux to rtol 2e-5 / atol 1e-4, as
+``tests/test_fused.py``.
+"""
+import pytest
+
+torch = pytest.importorskip('torch')
+
+import jax.numpy as jnp  # noqa: E402
+import numpy as np  # noqa: E402
+
+from repro.kernels import bilinear as jbil  # noqa: E402
+from repro.kernels import fused as jfused  # noqa: E402
+from repro.kernels import rank1_update as jr1  # noqa: E402
+from repro_torch.kernels import bilinear as bil  # noqa: E402
+from repro_torch.kernels import dispatch, launches, ref  # noqa: E402
+from repro_torch.kernels import fused  # noqa: E402
+from repro_torch.kernels import rank1_update as r1  # noqa: E402
+
+SHAPES = [(8, 8), (64, 48), (128, 128), (200, 136), (512, 384), (1000, 513)]
+DTYPES = ['float32', 'bfloat16']
+TOL = {'float32': 1e-5, 'bfloat16': 3e-2}
+GAMMA, MU = 0.03, 0.9
+BLOCK = dict(block_in=128, block_out=128)
+
+
+def _mk(shape, dtype, lead=(), seed=0):
+    """Same inputs for both packages: numpy f32 draws, g rounded to
+    ``dtype`` by each framework (both round to nearest even)."""
+    rng = np.random.default_rng(seed)
+    g = rng.standard_normal(lead + shape, dtype=np.float32)
+    a = rng.standard_normal(lead + shape[:1], dtype=np.float32)
+    b = rng.standard_normal(lead + shape[1:], dtype=np.float32)
+    m = rng.standard_normal(lead + shape, dtype=np.float32)
+    jx = (jnp.asarray(g, dtype), jnp.asarray(a), jnp.asarray(b),
+          jnp.asarray(m))
+    tx = (torch.from_numpy(g).to(getattr(torch, dtype)), torch.from_numpy(a),
+          torch.from_numpy(b), torch.from_numpy(m))
+    assert np.array_equal(np.asarray(jx[0], np.float32), tx[0].float().numpy())
+    return jx, tx
+
+
+def _bilinear_scale(g, a, b):
+    return ref.bilinear_ref(g.abs(), a.abs(), b.abs()).numpy()
+
+
+@pytest.fixture(autouse=True)
+def _no_launches():
+    """On CPU tensors the wrappers must take the plain path: no launches."""
+    launches.reset()
+    yield
+    assert launches.snapshot() == {k: 0 for k in launches.COUNTS}
+
+
+@pytest.mark.parametrize('stacked', [False, True])
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', SHAPES)
+def test_bilinear_matches_pallas(shape, dtype, stacked):
+    lead = (2,) if stacked else ()
+    (jg, ja, jb, _), (g, a, b, _) = _mk(shape, dtype, lead)
+    if stacked:
+        want = np.asarray(jbil.bilinear_stacked(jg, ja, jb, **BLOCK))
+        got = bil.bilinear_stacked(g, a, b).numpy()
+    else:
+        want = np.asarray(jbil.bilinear(jg, ja, jb, **BLOCK))
+        got = bil.bilinear(g, a, b).numpy()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    assert np.all(np.abs(got - want) <= TOL[dtype] * _bilinear_scale(g, a, b))
+
+
+@pytest.mark.parametrize('stacked', [False, True])
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', SHAPES)
+def test_rank1_update_matches_pallas(shape, dtype, stacked):
+    lead = (2,) if stacked else ()
+    (jg, ja, jb, _), (g, a, b, _) = _mk(shape, dtype, lead, seed=1)
+    coeff = np.float32(0.37) + np.zeros(lead, np.float32)
+    scale = np.float32(2.5) + np.zeros(lead, np.float32)
+    cs = torch.from_numpy(np.stack([coeff, scale], -1))
+    if stacked:
+        want = jr1.rank1_update_stacked(jg, ja, jb, jnp.asarray(coeff),
+                                        jnp.asarray(scale), **BLOCK)
+        got = r1.rank1_update_stacked(g, a, b, cs)
+    else:
+        want = jr1.rank1_update(jg, ja, jb, jnp.float32(0.37),
+                                jnp.float32(2.5), **BLOCK)
+        got = r1.rank1_update(g, a, b, cs)
+    assert got.dtype == g.dtype
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
+@pytest.mark.parametrize('fold', [False, True])
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', SHAPES)
+def test_eva_fused_matches_pallas(shape, dtype, fold):
+    (jg, ja, jb, jm), (g, a, b, m) = _mk(shape, dtype, (2,), seed=2)
+    want, want_aux = jfused.eva_fused_stacked(jg, ja, jb, GAMMA, jm, MU,
+                                              fold_momentum=fold, **BLOCK)
+    got, aux = fused.eva_fused_stacked(g, a, b, GAMMA, m, MU, fold)
+    assert got.dtype == torch.float32 and aux.shape == (2, 3)
+    np.testing.assert_allclose(GAMMA * got.numpy(),
+                               GAMMA * np.asarray(want), atol=1e-6, rtol=1e-6)
+    np.testing.assert_allclose(aux.numpy(), np.asarray(want_aux),
+                               rtol=2e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize('impl', ['auto', 'cuda', 'torch'])
+def test_dispatch_impls_agree_on_cpu(impl):
+    """Every impl takes the plain path for CPU tensors, bit for bit."""
+    _, (g, a, b, m) = _mk((64, 48), 'float32', (3,), seed=3)
+    dot, sq = dispatch.bilinear_and_norms_stacked(g, a, b, impl=impl)
+    want_dot, want_sq = ref.bilinear_and_norms_ref(g, a, b)
+    assert torch.equal(dot, want_dot) and torch.equal(sq, want_sq)
+    c, s = dot / 7.0, torch.full_like(dot, 1 / GAMMA)
+    assert torch.equal(dispatch.rank1_update_stacked(g, a, b, c, s, impl=impl),
+                       ref.rank1_update_ref(g, a, b, c, s))
+    out, aux = dispatch.eva_fused_stacked(g, a, b, GAMMA, m, MU, impl=impl)
+    r_out, r_aux = ref.eva_fused_ref(g, a, b, GAMMA, m, MU)
+    assert torch.equal(out, r_out) and torch.equal(aux, r_aux)
+
+
+def test_dispatch_rejects_unknown_impl():
+    _, (g, a, b, _) = _mk((8, 8), 'float32')
+    with pytest.raises(ValueError, match='unknown kernel impl'):
+        dispatch.bilinear_and_norms(g, a, b, impl='pallas')
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('shape', [(3, 1000, 1000), (1, 250, 30),
+                                   (2, 129, 127)])
+def test_cuda_kernels_match_plain_on_card(shape):
+    """The CUDA kernels against their plain versions, and stacked against
+    per item bit for bit (needs a card and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    _, (g, a, b, m) = _mk(shape[1:], 'float32', shape[:1], seed=4)
+    g, a, b, m = (x.cuda() for x in (g, a, b, m))
+    dot = bil.bilinear_stacked(g, a, b)
+    assert torch.all((dot - ref.bilinear_ref(g, a, b)).abs()
+                     <= 1e-5 * ref.bilinear_ref(g.abs(), a.abs(), b.abs()))
+    cs = torch.stack([dot / 11.0, torch.full_like(dot, 1 / GAMMA)], -1)
+    p = r1.rank1_update_stacked(g, a, b, cs)
+    torch.testing.assert_close(p, ref.rank1_update_ref(g, a, b, cs[:, 0],
+                                                       cs[:, 1]),
+                               atol=1e-5, rtol=1e-5)
+    out, aux = fused.eva_fused_stacked(g, a, b, GAMMA, m, MU)
+    r_out, r_aux = ref.eva_fused_ref(g, a, b, GAMMA, m, MU)
+    torch.testing.assert_close(GAMMA * out, GAMMA * r_out, atol=1e-6,
+                               rtol=1e-6)
+    torch.testing.assert_close(aux, r_aux, atol=1e-4, rtol=2e-5)
+    for i in range(shape[0]):
+        sl = slice(i, i + 1)
+        assert torch.equal(bil.bilinear_stacked(g[sl], a[sl], b[sl]), dot[sl])
+        assert torch.equal(r1.rank1_update_stacked(g[sl], a[sl], b[sl],
+                                                   cs[sl]), p[sl])
+    launches.reset()
