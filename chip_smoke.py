@@ -10,28 +10,36 @@ Phases; any failure stops the run with a non-zero exit:
 1. device   — needs ``torch.cuda``; prints the card's name and power limit;
               turns TF32 off for matmuls and convolutions.
 2. build    — compiles ``src/repro_torch/kernels/csrc/*.cu`` with ``nvcc``.
-3. kernels  — each kernel against its plain PyTorch version at the
+3. kernels  — each kernel (bilinear, rank1_update, eva_fused, matvec,
+              eva_f_fused) against its plain PyTorch version at the
               autoencoder's layer shapes, two stacks and two ragged shapes,
-              f32 and bf16; stacked against per-item bit for bit; the fused
-              kernel with ``fold_momentum=False`` against the composed
-              bilinear + rank1_update kernels.
-4. main     — 20 Eva steps of the paper's full-width autoencoder
-              (784-1000-500-250-30-250-500-1000-784, batch 1000) composed and
-              20 fused, through ``make_optimizer`` / ``init_opt_state`` /
+              f32 and bf16; stacked against per-item bit for bit; each fused
+              kernel with ``fold_momentum=False`` against its composed
+              kernels.
+4. main     — the paper's full-width autoencoder
+              (784-1000-500-250-30-250-500-1000-784, batch 1000) trained by
+              Eva, Eva-f and Eva-s, 20 steps composed and 20 fused each,
+              through ``make_optimizer`` / ``init_opt_state`` /
               ``make_train_step``; launch counts, loss falls, and the same
-              steps with ``kernel_impl='torch'`` as the yardstick.
-5. stacked  — a few steps of MLP 784-1000-1000-1000-1000-10, whose three
-              1000x1000 layers form one stacked bucket.
+              steps with ``kernel_impl='torch'`` as the yardstick: each
+              step's losses, and each step's parameter change against the
+              plain step's from the same state; each kernel against its
+              plain version on the last inputs the path gave it.
+5. stacked  — a few Eva and Eva-f steps of MLP 784-1000-1000-1000-1000-10,
+              whose three 1000x1000 layers form one stacked bucket.
 6. times    — CUDA-event times of each kernel, its plain version and the
               one-call library equivalent at the autoencoder's shapes, eager
-              and replayed from a CUDA graph; the step times, the forward +
-              backward alone, and a torch.profiler breakdown of the step.
+              and replayed from a CUDA graph; the step times of each
+              optimizer, the forward + backward alone, and a torch.profiler
+              breakdown of each step.
 
 The line before the card line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
+import itertools
 import json
 import statistics
 import subprocess
@@ -48,11 +56,22 @@ STACKS = [(3, 1000, 1000), (2, 129, 127)]
 RAGGED = [(1000, 513), (200, 136)]
 GAMMA, MU = 0.03, 0.9
 TOL = {'float32': 1e-5, 'bfloat16': 3e-2}   # tests/test_kernels.py
+# matvec against its plain version: both read the same G values and add in
+# f32, so bf16 is held as tightly as f32 (of each column's scale)
+MATVEC_TOL = 1e-5
 FUSED_TOL = 1e-6                            # tests/test_fused.py
 TRAJ_RTOL = 1e-4                            # cuda vs torch loss, per step
+PARAM_RTOL = 1e-4                           # cuda vs torch, a leaf's step
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 F32_FLOPS = 67e12                           # H100 SXM f32, no tensor cores
 STEPS = 20
+# optimizer -> (lr of benchmarks/fig4_autoencoder.py, kernels launched once
+# per layer and step composed, the same fused)
+MAIN_PATHS = {
+    'eva': (0.15, ('bilinear', 'rank1_update'), ('eva_fused',)),
+    'eva_f': (0.15, ('matvec', 'rank1_update'), ('eva_f_fused',)),
+    'eva_s': (0.3, ('bilinear', 'rank1_update'), ('eva_fused',)),
+}
 
 
 def fail(msg: str):
@@ -129,7 +148,8 @@ def kernels_phase(torch):
     from repro_torch.kernels import fused, ops, ref
     from repro_torch.kernels import rank1_update as r1
 
-    err = {'bilinear': 0.0, 'rank1_update': 0.0, 'eva_fused': 0.0}
+    err = {'bilinear': 0.0, 'rank1_update': 0.0, 'eva_fused': 0.0,
+           'matvec': 0.0, 'eva_f_fused': 0.0}
     cases = [((1,) + s, True) for s in AE_SHAPES] + \
         [(s, False) for s in STACKS] + [((1,) + s, False) for s in RAGGED]
     for seed, (shape, on_path) in enumerate(cases):
@@ -173,11 +193,15 @@ def kernels_phase(torch):
                 if on_path and name == 'float32':
                     err['eva_fused'] = max(err['eva_fused'],
                                            (out - o_want).abs().max().item())
+            # without the fold the kernel reads no m: a null m, same bits
+            out, aux = fused.eva_fused_stacked(g, a, b, GAMMA, m, MU, False)
+            o0, x0 = fused.eva_fused_stacked(g, a, b, GAMMA, None, MU, False)
+            require(torch.equal(o0, out) and torch.equal(x0, aux),
+                    f'eva_fused m=None != m given {tag}')
             # fused (fold off) against the composed kernels; in f32 only,
             # since the composed P is rounded to G's dtype
             ec = torch.zeros(())
             if name == 'float32':
-                out, _ = fused.eva_fused_stacked(g, a, b, GAMMA, m, MU, False)
                 comp = r1.rank1_update_stacked(g, a, b,
                                                _cs(torch, g, a, b, dot))
                 ec = (GAMMA * out - GAMMA * comp).abs()
@@ -213,21 +237,91 @@ def kernels_phase(torch):
                 err['bilinear'] = max(err['bilinear'], e.max().item())
                 err['rank1_update'] = max(err['rank1_update'],
                                           ep.max().item())
+            emv, emv_rel, efc, efc_comp = _eva_f_checks(
+                torch, g, a, m, tag, float32=name == 'float32')
+            if on_path and name == 'float32':
+                err['matvec'] = max(err['matvec'], emv)
+                err['eva_f_fused'] = max(err['eva_f_fused'], efc)
             print(f'  ok {tag}: bilinear err {e.max().item():.2e}, '
                   f'rank1 err {ep.max().item():.2e}, fused-vs-composed '
-                  f'{ec.max().item():.2e}', flush=True)
+                  f'{ec.max().item():.2e}; matvec err {emv:.2e} '
+                  f'({emv_rel:.2e} of scale), eva_f_fused err {efc:.2e}, '
+                  f'vs composed {efc_comp:.2e}', flush=True)
     torch.cuda.synchronize()
     return err
+
+
+def _eva_f_checks(torch, g, a, m, tag, float32):
+    """Rows 6-8 on one case: matvec and eva_f_fused against their plain
+    versions, the fused kernel (fold off) against the composed matvec +
+    rank1_update kernels, and stacked against per item bit for bit.
+    Returns matvec's max abs error and its largest ratio to the column
+    scale, the fused output's max abs error against the plain version, and
+    (f32) its max error against the composed kernels on γ·out."""
+    from repro_torch.kernels import fused, ops, ref
+    from repro_torch.kernels import matvec as mv
+    # matvec: each column held against its own scale Σ|a_i g_ij|
+    u, asq = mv.matvec_and_norm_stacked(g, a)
+    e = (u - ref.matvec_ref(g, a)).abs()
+    col_scale = ref.matvec_ref(g.abs(), a.abs())
+    require(bool((e <= MATVEC_TOL * col_scale).all()),
+            f'matvec {tag}: err {e.max().item():.3e} > {MATVEC_TOL} x scale')
+    require(torch.allclose(asq, (a * a).sum(-1), rtol=1e-5, atol=0),
+            f'matvec norm {tag}')
+    e_fused = 0.0
+    outs = {}
+    for fold in (False, True):
+        out, aux = fused.eva_f_fused_stacked(g, a, GAMMA, m, MU, fold)
+        o_want, a_want = ref.eva_f_fused_ref(g, a, GAMMA, m, MU, fold)
+        eo = (GAMMA * out - GAMMA * o_want).abs()
+        require(bool((eo <= FUSED_TOL + FUSED_TOL *
+                      (GAMMA * o_want).abs()).all()),
+                f'eva_f_fused fold={fold} {tag}: err {eo.max().item():.3e}')
+        ea = (aux - a_want).abs()
+        require(bool((ea <= 1e-4 + 2e-5 * a_want.abs()).all()),
+                f'eva_f_fused aux fold={fold} {tag}: err '
+                f'{ea.max().item():.3e}')
+        e_fused = max(e_fused, (out - o_want).abs().max().item())
+        outs[fold] = (out, aux)
+    # without the fold the kernel reads no m: a null m gives the same bits
+    o0, x0 = fused.eva_f_fused_stacked(g, a, GAMMA, None, MU, False)
+    require(torch.equal(o0, outs[False][0]) and
+            torch.equal(x0, outs[False][1]),
+            f'eva_f_fused m=None != m given {tag}')
+    # fold off against the composed kernels; in f32 only, since the
+    # composed P is rounded to G's dtype
+    e_comp = 0.0
+    if float32:
+        comp = ops.eva_f_precondition(g, a, GAMMA, impl='cuda')
+        ec = (GAMMA * outs[False][0] - GAMMA * comp).abs()
+        require(bool((ec <= FUSED_TOL + FUSED_TOL *
+                      (GAMMA * comp).abs()).all()),
+                f'eva_f_fused vs composed {tag}: err {ec.max().item():.3e}')
+        e_comp = ec.max().item()
+    for i in range(g.shape[0] if g.shape[0] > 1 else 0):
+        sl = slice(i, i + 1)
+        u1, asq1 = mv.matvec_and_norm_stacked(g[sl], a[sl])
+        require(torch.equal(u1, u[sl]) and torch.equal(asq1, asq[sl]),
+                f'matvec stacked != item {i} {tag}')
+        for fold, (out, aux) in outs.items():
+            o1, x1 = fused.eva_f_fused_stacked(g[sl], a[sl], GAMMA, m[sl],
+                                               MU, fold)
+            require(torch.equal(o1, out[sl]) and torch.equal(x1, aux[sl]),
+                    f'eva_f_fused fold={fold} stacked != item {i} {tag}')
+        require(torch.equal(ops.eva_f_precondition(g[i], a[i], GAMMA),
+                            ops.eva_f_precondition(g, a, GAMMA)[i]),
+                f'ops.eva_f_precondition stacked != leaf {i} {tag}')
+    return (e.max().item(), (e / col_scale).max().item(), e_fused, e_comp)
 
 
 # ---------------------------------------------------------------------------
 # 4. the main path: full-width autoencoder, composed and fused
 
 
-def _train(torch, model, params0, batches, *, fused, impl, lr):
+def _train(torch, model, params0, batches, *, fused, impl, lr, name='eva'):
     from repro_torch.core.registry import make_optimizer
     from repro_torch.train.step import init_opt_state, make_train_step
-    opt, cap = make_optimizer('eva', lr=lr, fused=fused, kernel_impl=impl)
+    opt, cap = make_optimizer(name, lr=lr, fused=fused, kernel_impl=impl)
     state = init_opt_state(model, opt, cap, params0, batches[0],
                            device='cuda')
     step = make_train_step(model, opt, cap, device='cuda')
@@ -245,6 +339,122 @@ def _compare_trajectories(kernel, plain, what):
                 f'beyond {TRAJ_RTOL} relative')
 
 
+def _compare_steps(torch, model, params0, batches, *, fused, lr, name,
+                   what):
+    """Take each step of the kernel path's run a second time with the plain
+    step, from the same parameters, state and batch, and hold each leaf's
+    change to PARAM_RTOL of the plain change's norm.  The parameters keep
+    moving where the loss barely does, and one step from one state carries
+    no drift from earlier steps.  Returns the largest ratio."""
+    from repro_torch.core.registry import make_optimizer
+    from repro_torch.train.step import init_opt_state, make_train_step
+    steps = {}
+    for impl in ('auto', 'torch'):
+        opt, cap = make_optimizer(name, lr=lr, fused=fused, kernel_impl=impl)
+        steps[impl] = make_train_step(model, opt, cap, device='cuda')
+    state = init_opt_state(model, opt, cap, params0, batches[0],
+                           device='cuda')
+    params, worst = params0, 0.0
+    for i, batch in enumerate(batches):
+        plain, _, _ = steps['torch'](params, state, batch)
+        nxt, state, _ = steps['auto'](params, state, batch)
+        for path, p in params.items():
+            dk = nxt[path].float() - p.float()
+            dp = plain[path].float() - p.float()
+            ref_norm = torch.linalg.vector_norm(dp).item()
+            require(ref_norm > 0, f'{what}: step {i} left {path} unmoved')
+            rel = torch.linalg.vector_norm(dk - dp).item() / ref_norm
+            require(rel <= PARAM_RTOL,
+                    f'{what}: step {i} changes {path} by {rel:.3e} of the '
+                    f'plain change away from it, beyond {PARAM_RTOL}')
+            worst = max(worst, rel)
+        params = nxt
+    return worst
+
+
+def _path_kernels():
+    """kernel -> (wrapper module, stacked wrapper's name, its plain version
+    on the same arguments).  Each kernel's unstacked wrapper calls its
+    stacked one, so these see every call."""
+    from repro_torch.kernels import bilinear, fused, matvec, rank1_update, ref
+    return {
+        'bilinear': (bilinear, 'bilinear_and_norms_stacked',
+                     ref.bilinear_and_norms_ref),
+        'rank1_update': (rank1_update, 'rank1_update_stacked',
+                         lambda g, a, b, cs: ref.rank1_update_ref(
+                             g, a, b, cs[:, 0], cs[:, 1])),
+        'matvec': (matvec, 'matvec_and_norm_stacked',
+                   ref.matvec_and_norm_ref),
+        'eva_fused': (fused, 'eva_fused_stacked', ref.eva_fused_ref),
+        'eva_f_fused': (fused, 'eva_f_fused_stacked', ref.eva_f_fused_ref),
+    }
+
+
+@contextlib.contextmanager
+def _recording(torch):
+    """While a path runs, keep a copy of the arguments of each kernel's last
+    call per operand shape; yields ``{(kernel, shape): (args, kwargs)}``."""
+    seen, saved = {}, []
+    for name, (mod, attr, _) in _path_kernels().items():
+        fn = getattr(mod, attr)
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            seen[(_name, tuple(args[0].shape))] = (
+                [x.clone() if torch.is_tensor(x) else x for x in args], kw)
+            return _fn(*args, **kw)
+        saved.append((mod, attr, fn))
+        setattr(mod, attr, spy)
+    try:
+        yield seen
+    finally:
+        for mod, attr, fn in saved:
+            setattr(mod, attr, fn)
+
+
+def _check_path_inputs(torch, seen, what):
+    """Hold each recorded call against its plain version on the very inputs
+    the path gave it, with phase 3's limits.  Returns, per kernel, the
+    largest error as a share of its limit, and for each rank1_update call
+    the share of its elements that the rank-one term moves off s·G (0 where
+    the term is below G's rounding)."""
+    from repro_torch.kernels import ref
+    kernels = _path_kernels()
+    worst, moved = {}, []
+    for (name, shape), (args, kw) in sorted(seen.items()):
+        mod, attr, plain = kernels[name]
+        got, want = getattr(mod, attr)(*args, **kw), plain(*args, **kw)
+        g, a = args[0], args[1]
+        tol = TOL[str(g.dtype).rsplit('.', 1)[-1]]
+        tag = f'{what}: {name} on the path\'s {"x".join(map(str, shape))}'
+        if name in ('bilinear', 'matvec'):
+            if name == 'bilinear':
+                lim = tol * ref.bilinear_ref(g.abs(), a.abs(), args[2].abs())
+            else:
+                lim = MATVEC_TOL * ref.matvec_ref(g.abs(), a.abs())
+            e = (got[0] - want[0]).abs()
+            require(bool((e <= lim).all()), f'{tag}: err {e.max().item():.3e}'
+                    f' beyond its limit')
+            share = (e / torch.where(lim > 0, lim, 1.0)).max().item()
+            require(torch.allclose(got[1], want[1], rtol=1e-5, atol=0),
+                    f'{tag}: norms')
+        elif name == 'rank1_update':
+            e = (got.float() - want.float()).abs()
+            share = (e / (tol + tol * want.float().abs())).max().item()
+            sg = (args[3][:, 1, None, None] * g.float()).to(g.dtype)
+            moved.append((got != sg).float().mean().item())
+        else:
+            gamma = args[3] if name == 'eva_fused' else args[2]
+            eo = (gamma * got[0] - gamma * want[0]).abs()
+            share = (eo / (FUSED_TOL + FUSED_TOL * (gamma * want[0]).abs())
+                     ).max().item()
+            ea = (got[1] - want[1]).abs()
+            require(bool((ea <= 1e-4 + 2e-5 * want[1].abs()).all()),
+                    f'{tag}: aux err {ea.max().item():.3e}')
+        require(share <= 1.0, f'{tag}: err {share:.3e} of its limit')
+        worst[name] = max(worst.get(name, 0.0), share)
+    return worst, moved
+
+
 def ae_setup(torch):
     from repro_torch.data.synthetic import AEStream
     from repro_torch.models import module as M
@@ -259,41 +469,56 @@ def ae_setup(torch):
 
 
 def main_phase(torch, model, params0, batches):
-    phase('4 main path: Eva on the full-width autoencoder')
+    phase('4 main path: Eva, Eva-f and Eva-s on the full-width autoencoder')
     from repro_torch.kernels import launches
     n_layers = len(model.dims) - 1
-    counts, traj = {}, {}
-    for fused in (False, True):
-        launches.reset()
-        losses, *_ = _train(torch, model, params0, batches, fused=fused,
-                            impl='auto', lr=0.15)
-        got = launches.snapshot()
-        want = ({'bilinear': 0, 'rank1_update': 0, 'eva_fused': n_layers}
-                if fused else {'bilinear': n_layers, 'rank1_update': n_layers,
-                               'eva_fused': 0})
-        want = {k: v * STEPS for k, v in want.items()}
-        require(got == want, f'fused={fused}: launches {got} != {want}')
-        counts.update({k: v for k, v in got.items() if v})
-        require(all(map(lambda x: x == x and abs(x) < float('inf'), losses)),
-                f'fused={fused}: non-finite loss {losses}')
-        require(losses[-1] < losses[0],
-                f'fused={fused}: loss did not fall ({losses[0]} -> '
-                f'{losses[-1]})')
-        launches.reset()
-        plain, *_ = _train(torch, model, params0, batches, fused=fused,
-                           impl='torch', lr=0.15)
-        require(sum(launches.snapshot().values()) == 0,
-                "impl='torch' launched a kernel")
-        _compare_trajectories(losses, plain, f'autoencoder fused={fused}')
-        traj[fused] = (losses, plain)
-        print(f'  fused={fused}: launches {got}; loss {losses[0]:.6f} -> '
-              f'{losses[-1]:.6f}; max rel diff to plain '
-              f'{max(abs(k - p) / abs(p) for k, p in zip(losses, plain)):.2e}',
-              flush=True)
-    print(json.dumps({'ae_losses': {
-        'composed_cuda': traj[False][0], 'composed_torch': traj[False][1],
-        'fused_cuda': traj[True][0], 'fused_torch': traj[True][1]}}))
-    return counts
+    counts = {k: 0 for k in launches.COUNTS}
+    per_step, traj = {}, {}
+    for name, (lr, composed, fused_names) in MAIN_PATHS.items():
+        for fused in (False, True):
+            tag = f'{name} fused={fused}'
+            with _recording(torch) as seen:
+                launches.reset()
+                losses, *_ = _train(torch, model, params0, batches,
+                                    fused=fused, impl='auto', lr=lr,
+                                    name=name)
+                got = launches.snapshot()
+            want = {k: (n_layers * STEPS if k in (fused_names if fused
+                                                  else composed) else 0)
+                    for k in launches.COUNTS}
+            require(got == want, f'{tag}: launches {got} != {want}')
+            for k, v in got.items():
+                counts[k] += v
+            per_step[tag] = {k: v // STEPS for k, v in got.items() if v}
+            require(all(map(lambda x: x == x and abs(x) < float('inf'),
+                            losses)), f'{tag}: non-finite loss {losses}')
+            require(losses[-1] < losses[0],
+                    f'{tag}: loss did not fall ({losses[0]} -> '
+                    f'{losses[-1]})')
+            launches.reset()
+            plain, *_ = _train(torch, model, params0, batches, fused=fused,
+                               impl='torch', lr=lr, name=name)
+            require(sum(launches.snapshot().values()) == 0,
+                    f"{tag}: impl='torch' launched a kernel")
+            _compare_trajectories(losses, plain, f'autoencoder {tag}')
+            prel = _compare_steps(torch, model, params0, batches,
+                                  fused=fused, lr=lr, name=name,
+                                  what=f'autoencoder {tag}')
+            kerr, moved = _check_path_inputs(torch, seen,
+                                             f'autoencoder {tag}')
+            traj[tag] = {'cuda': losses, 'torch': plain}
+            rel = max(abs(k - p) / abs(p) for k, p in zip(losses, plain))
+            print(f'  {tag}: launches {got}; loss {losses[0]:.6f} -> '
+                  f'{losses[-1]:.6f}; max rel diff to plain {rel:.2e}; '
+                  f'step change vs plain {prel:.2e} of its norm; on the '
+                  f'path\'s last inputs, error as a share of its limit '
+                  f'{ {k: float(f"{v:.2e}") for k, v in kerr.items()} }'
+                  + (f'; the rank-one term moves {min(moved):.2e} to '
+                     f'{max(moved):.2e} of P\'s elements' if moved else ''),
+                  flush=True)
+    print(json.dumps({'ae_losses': traj}))
+    print(json.dumps({'ae_launches_per_step': per_step}))
+    return counts, per_step
 
 
 # ---------------------------------------------------------------------------
@@ -301,7 +526,7 @@ def main_phase(torch, model, params0, batches):
 
 
 def stacked_phase(torch):
-    phase('5 stacked bucket: MLP 784-1000-1000-1000-1000-10')
+    phase('5 stacked bucket: MLP 784-1000-1000-1000-1000-10, Eva and Eva-f')
     from repro_torch.core import bucketing
     from repro_torch.data.synthetic import ClassStream
     from repro_torch.kernels import launches
@@ -318,22 +543,25 @@ def stacked_phase(torch):
     data = ClassStream(batch=512, dim=784, classes=10, device='cuda')
     batches = [data.batch_at(i) for i in range(5)]
     per_step = len(plan.buckets)         # one call per bucket or 1-path leaf
-    for fused in (False, True):
-        launches.reset()
-        losses, *_ = _train(torch, model, params0, batches, fused=fused,
-                            impl='auto', lr=0.1)
-        got = launches.snapshot()
-        names = ('eva_fused',) if fused else ('bilinear', 'rank1_update')
-        require(all(got[k] == per_step * len(batches) for k in names),
-                f'stacked fused={fused}: launches {got}')
-        plain, *_ = _train(torch, model, params0, batches, fused=fused,
-                           impl='torch', lr=0.1)
-        _compare_trajectories(losses, plain, f'MLP fused={fused}')
-        require(losses[-1] < losses[0], f'MLP fused={fused}: loss did not '
-                f'fall ({losses[0]} -> {losses[-1]})')
-        print(f'  fused={fused}: buckets {[b.key for b in plan.buckets]}; '
-              f'launches {got}; loss {losses[0]:.4f} -> {losses[-1]:.4f}',
-              flush=True)
+    for name in ('eva', 'eva_f'):
+        _, composed, fused_names = MAIN_PATHS[name]
+        for fused in (False, True):
+            launches.reset()
+            losses, *_ = _train(torch, model, params0, batches, fused=fused,
+                                impl='auto', lr=0.1, name=name)
+            got = launches.snapshot()
+            names = fused_names if fused else composed
+            require(all(got[k] == per_step * len(batches) for k in names),
+                    f'stacked {name} fused={fused}: launches {got}')
+            plain, *_ = _train(torch, model, params0, batches, fused=fused,
+                               impl='torch', lr=0.1, name=name)
+            _compare_trajectories(losses, plain, f'MLP {name} fused={fused}')
+            require(losses[-1] < losses[0],
+                    f'MLP {name} fused={fused}: loss did not fall '
+                    f'({losses[0]} -> {losses[-1]})')
+            print(f'  {name} fused={fused}: buckets '
+                  f'{[b.key for b in plan.buckets]}; launches {got}; loss '
+                  f'{losses[0]:.4f} -> {losses[-1]:.4f}', flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -382,10 +610,11 @@ def _bound(n_bytes, n_flops):
                                        else 'operations')
 
 
-def times_phase(torch, err, counts, model, params0, batches):
+def times_phase(torch, err, counts, per_step, model, params0, batches):
     phase('6 times at the autoencoder shapes (one step = 8 layers)')
     from repro_torch.kernels import bilinear as bil
     from repro_torch.kernels import fused, ref
+    from repro_torch.kernels import matvec as mv
     from repro_torch.kernels import rank1_update as r1
     iters = 100
     layers = []
@@ -395,12 +624,16 @@ def times_phase(torch, err, counts, model, params0, batches):
         c, s = cs.tolist()
         layers.append((g, a, b, m, cs, c, s))
     n = sum(d_in * d_out for d_in, d_out in AE_SHAPES)
-    vec = sum(d_in + d_out for d_in, d_out in AE_SHAPES)
+    vec_in = sum(d_in for d_in, _ in AE_SHAPES)
+    vec = vec_in + sum(d_out for _, d_out in AE_SHAPES)
     k = len(AE_SHAPES)
-    work = {  # bytes: each input read once, each output written once
+    work = {  # (bytes: each input read once, each output written once; ops)
         'bilinear': (4 * (n + vec + k), 3 * n),
         'rank1_update': (4 * (2 * n + vec + 2 * k), 4 * n),
         'eva_fused': (4 * (3 * n + vec + 3 * k), 15 * n),
+        'matvec': (4 * (n + vec + k), 2 * n),
+        # fold_momentum=False, as on the path: m is not read
+        'eva_f_fused': (4 * (2 * n + vec_in + 3 * k), 12 * n),
     }
     fns = {
         'bilinear': (
@@ -422,6 +655,17 @@ def times_phase(torch, err, counts, model, params0, batches):
             lambda: [ref.eva_fused_ref(g, a, b, GAMMA, m, MU, True)
                      for g, a, b, m, *_ in layers],
             None),
+        'matvec': (
+            lambda: [mv.matvec_and_norm(g, a) for g, a, *_ in layers],
+            lambda: [ref.matvec_and_norm_ref(g, a) for g, a, *_ in layers],
+            lambda: [torch.einsum('io,i->o', g, a) for g, a, *_ in layers]),
+        'eva_f_fused': (
+            lambda: [fused.eva_f_fused_stacked(g[None], a[None], GAMMA,
+                                               m[None], MU, False)
+                     for g, a, b, m, *_ in layers],
+            lambda: [ref.eva_f_fused_ref(g, a, GAMMA, m, MU, False)
+                     for g, a, b, m, *_ in layers],
+            None),
     }
     meta = {
         'bilinear': ('src/repro_torch/kernels/csrc/bilinear.cu',
@@ -430,6 +674,10 @@ def times_phase(torch, err, counts, model, params0, batches):
                          'src/repro/kernels/rank1_update.py:51', [3, 4]),
         'eva_fused': ('src/repro_torch/kernels/csrc/eva_fused.cu',
                       'src/repro/kernels/fused.py:142', [5]),
+        'matvec': ('src/repro_torch/kernels/csrc/matvec.cu',
+                   'src/repro/kernels/matvec.py:57', [6, 7]),
+        'eva_f_fused': ('src/repro_torch/kernels/csrc/eva_f_fused.cu',
+                        'src/repro/kernels/fused.py:194', [8]),
     }
     rows = []
     for name, (kern, plain, lib) in fns.items():
@@ -437,8 +685,9 @@ def times_phase(torch, err, counts, model, params0, batches):
         row = {
             'name': name, 'route': 'cuda', 'source': meta[name][0],
             'replaces': meta[name][1], 'jax_rows': meta[name][2],
-            'launches': counts.get(name, 0),
-            'launches_per_step': counts.get(name, 0) // STEPS,
+            'launches': counts[name],
+            'launches_per_step': {tag: c[name] for tag, c in per_step.items()
+                                  if name in c},
             'max_abs_err': err[name],
             'ms': _time_ms(torch, kern, iters),
             'graph_ms': _graph_ms(torch, kern, iters),
@@ -466,33 +715,33 @@ def _median_spread(xs):
 
 def _step_times(torch, model, params0, batches, rounds=5, per_round=10):
     """ms per step on the host clock (each timed window ends in a
-    synchronize): the forward + backward alone, and the composed and fused
-    steps with the kernels and with the plain path.  The variants run in
-    turns, the order reversed every round, and each reports its median and
-    range over the rounds."""
-    from repro_torch.core import kv
+    synchronize): for each optimizer the forward + backward alone with its
+    capture, and the composed and fused steps with the kernels and with the
+    plain path.  The variants run in turns, the order reversed every round,
+    and each reports its median and range over the rounds."""
+    from repro_torch.core.registry import capture_for
     from repro_torch.train.step import compute_grads_and_stats
 
-    def grads_only(state):
-        for batch in batches[:per_round]:
-            compute_grads_and_stats(model, params0, batch, kv.EVA_CAPTURE)
-        return state
+    runs = {}
+    for name, (lr, *_) in MAIN_PATHS.items():
+        def grads_only(_, cap=capture_for(name)):
+            for batch in batches[:per_round]:
+                compute_grads_and_stats(model, params0, batch, cap)
+        runs[f'grads_only_{name}_ms'] = grads_only
+        for fused_flag in (False, True):
+            for impl in ('auto', 'torch'):
+                *_, step, params, state = _train(
+                    torch, model, params0, batches[:3], fused=fused_flag,
+                    impl=impl, lr=lr, name=name)
+                carry = {'params': params, 'state': state}
 
-    runs = {'grads_only_ms': grads_only}
-    for fused_flag in (False, True):
-        for impl in ('auto', 'torch'):
-            *_, step, params, state = _train(torch, model, params0,
-                                             batches[:3], fused=fused_flag,
-                                             impl=impl, lr=0.15)
-            carry = {'params': params, 'state': state}
-
-            def run(_, step=step, carry=carry):
-                for batch in batches[:per_round]:
-                    carry['params'], carry['state'], _m = step(
-                        carry['params'], carry['state'], batch)
-            key = f'{"fused" if fused_flag else "composed"}_' \
-                  f'{"cuda" if impl == "auto" else "torch"}_ms'
-            runs[key] = run
+                def run(_, step=step, carry=carry):
+                    for batch in batches[:per_round]:
+                        carry['params'], carry['state'], _m = step(
+                            carry['params'], carry['state'], batch)
+                key = f'{name}_{"fused" if fused_flag else "composed"}_' \
+                      f'{"cuda" if impl == "auto" else "torch"}_ms'
+                runs[key] = run
     times = {k: [] for k in runs}
     for r in range(rounds):
         for key in (list(runs) if r % 2 == 0 else list(reversed(runs))):
@@ -512,10 +761,11 @@ def _profile(torch, model, params0, batches, steps, n=10):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = {}
-    for fused_flag in (False, True):
+    for (name, (lr, *_)), fused_flag in itertools.product(MAIN_PATHS.items(),
+                                                          (False, True)):
         *_, step, params, state = _train(torch, model, params0, batches[:3],
                                          fused=fused_flag, impl='auto',
-                                         lr=0.15)
+                                         lr=lr, name=name)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -529,7 +779,7 @@ def _profile(torch, model, params0, batches, steps, n=10):
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + \
                 evt.self_device_time_total / n
         busy_us = sum(by_kernel.values())
-        key = 'fused' if fused_flag else 'composed'
+        key = f'{name}_{"fused" if fused_flag else "composed"}'
         step_ms = steps[f'{key}_cuda_ms']['median']
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
         out[key] = {
@@ -541,6 +791,8 @@ def _profile(torch, model, params0, batches, steps, n=10):
             'device_idle_share': 1.0 - busy_us / 1e3 / step_ms if busy_us
             else 'not measured',
             'top_device_us_per_step': {k[:80]: v for k, v in top},
+            'port_kernels_us_per_step': {k[:80]: v for k, v in
+                                         by_kernel.items() if 'repro::' in k},
         }
     return out
 
@@ -556,9 +808,9 @@ def main() -> None:
     build_phase()
     err = kernels_phase(torch)
     model, params0, batches = ae_setup(torch)
-    counts = main_phase(torch, model, params0, batches)
+    counts, per_step = main_phase(torch, model, params0, batches)
     stacked_phase(torch)
-    rows = times_phase(torch, err, counts, model, params0, batches)
+    rows = times_phase(torch, err, counts, per_step, model, params0, batches)
     print(f'total {time.perf_counter() - t0:.1f} s after device check')
     print(json.dumps({'kernels': rows}))
     print(smi)

@@ -11,7 +11,7 @@ every bucket either way.
 from __future__ import annotations
 
 import functools
-from typing import Any, Mapping, NamedTuple, Optional
+from typing import Any, Callable, Mapping, NamedTuple, Optional
 
 import torch
 
@@ -63,12 +63,15 @@ def _plan_from_sig(sig: tuple, min_bucket_size: int) -> BucketPlan:
 
 
 def build_plan(flat: Mapping[str, Any],
+               predicate: Optional[Callable[[str, Any], bool]] = None,
                min_bucket_size: Optional[int] = None) -> BucketPlan:
-    """Group ``{path: tensor}`` into a deterministic BucketPlan."""
+    """Group ``{path: tensor}`` into a deterministic BucketPlan;
+    ``predicate(path, tensor)`` filters the paths."""
     if min_bucket_size is None:
         min_bucket_size = DEFAULT_MIN_BUCKET_SIZE
     sig = tuple(sorted((p, tuple(x.shape), x.dtype)
-                       for p, x in flat.items()))
+                       for p, x in flat.items()
+                       if predicate is None or predicate(p, x)))
     return _plan_from_sig(sig, min_bucket_size)
 
 

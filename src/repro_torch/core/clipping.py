@@ -1,9 +1,13 @@
-"""KL trust region (Eq. 16) with momentum inside it — PyTorch port.
+"""KL clipping (Eq. 16), KL normalization (§4.1) and grafting (§4.2) —
+PyTorch port.
 
-Counterpart of ``kl_clip_trace``, ``finish_kl_clip`` and ``_lr_at`` in
-``repro/core/clipping.py``: accumulate m ← μ·m + p, clip the
-momentum-included update by ν = min(1, √(κ / (α² uᵀg))), store the clipped
-buffer.  All scalars stay 0-d device tensors.
+Counterpart of ``kl_clip_trace``, ``kl_normalize``,
+``graft_to_grad_magnitude`` and the fused tails (``finish_kl_clip``,
+``ema_finish``, ``finish_normalized_ema``, ``finish_graft_ema``) in
+``repro/core/clipping.py``.  The trust region accumulates m ← μ·m + p, clips
+the momentum-included update by ν = min(1, √(κ / (α² uᵀg))) and stores the
+clipped buffer; Eva-f rescales by 1/√(pᵀg); Eva-s grafts each leaf to the
+gradient's norm.  All scalars stay 0-d device tensors.
 """
 from __future__ import annotations
 
@@ -12,8 +16,8 @@ from typing import Callable, Optional, Union
 import torch
 
 from repro_torch.core.transform import (Extras, GradientTransformation,
-                                        TraceState, scalar, tree_map,
-                                        tree_vdot)
+                                        TraceState, _unit_init, ema_trace,
+                                        scalar, tree_map, tree_vdot)
 
 Schedule = Union[float, Callable]
 F32 = torch.float32
@@ -66,3 +70,58 @@ def finish_kl_clip(u, kl, step, kappa: float, lr: Schedule, m=None):
     out = tree_map(lambda x: x * nu, u)
     stored = out if m is None else tree_map(lambda x: x * nu, m)
     return out, stored
+
+
+def kl_normalize(eps: float = 1e-12) -> GradientTransformation:
+    """p / √(Σ_l p_lᵀ g_l) — the hyper-parameter-free Eva-f stabilizer."""
+
+    def update(updates, state, params=None, extras: Optional[Extras] = None):
+        del params
+        s = torch.rsqrt(torch.clamp(tree_vdot(updates, extras.raw_grads),
+                                    min=eps))
+        return tree_map(lambda u: u * s, updates), state
+
+    return GradientTransformation(_unit_init, update)
+
+
+def graft_to_grad_magnitude(eps: float = 1e-12) -> GradientTransformation:
+    """Per-leaf scale √(gᵀg / pᵀp): the preconditioned direction with the
+    SGD magnitude (the Eva-s stabilizer)."""
+
+    def leaf(u, g):
+        u32, g32 = u.to(F32), g.to(F32)
+        s = torch.sqrt((g32 * g32).sum() /
+                       torch.clamp((u32 * u32).sum(), min=eps))
+        return (u32 * s).to(u.dtype)
+
+    def update(updates, state, params=None, extras: Optional[Extras] = None):
+        del params
+        return tree_map(leaf, updates, extras.raw_grads), state
+
+    return GradientTransformation(_unit_init, update)
+
+
+def ema_finish(x, trace, momentum: float, step):
+    """``ema_trace`` on an already-built tree with an f32 ``trace``:
+    m ← μ·m + (1−μ)·x; out = m / (1 − μ^(t+1)).  Returns ``(out, m)``."""
+    out, state = ema_trace(momentum).update(x, TraceState(trace=trace),
+                                            extras=Extras(step=step))
+    return out, state.trace
+
+
+def finish_normalized_ema(p, pg, trace, momentum: float, step,
+                          eps: float = 1e-12):
+    """The ``kl_normalize`` + ``ema_trace`` tail given a precomputed
+    ⟨p, g⟩."""
+    s = torch.rsqrt(torch.clamp(pg, min=eps))
+    return ema_finish(tree_map(lambda u: u * s, p), trace, momentum, step)
+
+
+def finish_graft_ema(p, pp, gg, trace, momentum: float, step,
+                     eps: float = 1e-12):
+    """The ``graft_to_grad_magnitude`` + ``ema_trace`` tail given per-leaf
+    trees of ⟨p,p⟩ and ⟨g,g⟩ scalars."""
+    scaled = tree_map(
+        lambda u, a, b: u * torch.sqrt(b / torch.clamp(a, min=eps)),
+        p, pp, gg)
+    return ema_finish(scaled, trace, momentum, step)

@@ -52,10 +52,23 @@ def _stats_plan(flat_updates: dict, stats: dict,
                                  if p in flat_updates})
 
 
+def _refresh_snapshot(pol, sched, stats, cached):
+    """The eva family's refresh: the applied KV snapshot is the
+    bias-corrected EMA at the last refresh (a ``torch.where`` on a device
+    bool, so nothing waits on the card).  Returns ``(applied stats, new
+    SchedState)``; the applied stats are the new ``cached`` slot.  The
+    reference's snapshot-keeping policies are not ported
+    (``schedule.policy.init_state`` refuses them), so the applied tree
+    always lives in ``cached``."""
+    refresh, staleness = pol.decide(sched, stats)
+    used = tree_map(lambda f, c: torch.where(refresh, f, c), stats, cached)
+    return used, schedpol.commit(pol, sched, stats, refresh, staleness)
+
+
 def _kv_init(params, extras, fields, policy, interval):
     """Bucket plan + zeroed running stats + refresh bookkeeping."""
     if extras is None or extras.stats is None:
-        raise ValueError('eva preconditioner init needs example stats '
+        raise ValueError('eva-family preconditioner init needs example stats '
                          '(pass Extras(stats=...) — see train.init_opt_state)')
     flat = kvlib.flatten_params(params)
     plan = _stats_plan(flat, extras.stats, extras)
@@ -82,10 +95,7 @@ def _kv_step(state, updates, extras, *, fields, policy, interval, kv_decay):
     # bound and it is the identity (sharding/constraints.py::pmean_stats).
     fresh = bucketing.gather_tree(plan, fresh_flat)
     stats, running = kvlib.update_running(state.running, fresh, kv_decay)
-    refresh, staleness = pol.decide(state.sched, stats)
-    used = tree_map(lambda f, c: torch.where(refresh, f, c), stats,
-                    state.cached)
-    sched = schedpol.commit(pol, state.sched, stats, refresh, staleness)
+    used, sched = _refresh_snapshot(pol, state.sched, stats, state.cached)
     return flat, plan, used, dict(running=running, cached=used, sched=sched)
 
 

@@ -1,6 +1,7 @@
 """Kronecker-vector capture: forward statistics and zero taps — PyTorch port.
 
-Counterpart of ``repro/core/kv.py``, for Eva's vector statistics.
+Counterpart of ``repro/core/kv.py``, for the vector statistics of Eva (ā and
+b̄) and Eva-f (ā only, no taps).
 
 * **forward stats**: every preconditioned linear records the mean of its
   input, ā = (1/n) Σ a_t, as an auxiliary output of the model's apply.
@@ -51,6 +52,7 @@ class CaptureConfig:
 
 NO_CAPTURE = CaptureConfig(None, None)
 EVA_CAPTURE = CaptureConfig('mean', 'mean')
+EVA_F_CAPTURE = CaptureConfig('mean', None)
 
 
 class LayerStats(NamedTuple):

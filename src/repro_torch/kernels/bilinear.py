@@ -3,16 +3,16 @@
 
 Counterpart of ``repro/kernels/bilinear.py``.  ``bilinear_stacked`` takes a
 stack g (L, d_in, d_out), a (L, d_in), b (L, d_out) and returns (L,) f32;
-``bilinear`` is the same for one matrix, run as a stack of one.  On a CUDA
-tensor the wrapper launches the kernel (or raises); on a CPU tensor it uses
-the plain version in ``ref.py``.  Outputs and scratch come from
-``torch.empty`` on the input's device; nothing synchronises.
+``bilinear`` is the same for one matrix, run as a stack of one.  The
+wrappers take CUDA tensors only and raise on any other (``dispatch.py``
+routes CPU tensors to the plain versions in ``ref.py``).  Outputs and scratch
+come from ``torch.empty`` on the input's device; nothing synchronises.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, launches, ref
+from repro_torch.kernels import build, launches
 
 _SIGNATURES = {
     'repro_chunk_elems': [],
@@ -113,8 +113,6 @@ def bilinear_and_norms_stacked(g: torch.Tensor, a: torch.Tensor,
     kernel launch pair.  The norms feed Eq. 13's denominator; summed on the
     card in a fixed order, they are the same for an item alone or in a
     stack, as the dot is."""
-    if g.device.type == 'cpu':
-        return ref.bilinear_and_norms_ref(g, a, b)
     check_operands(g, a, b, widths=(g.shape[1], g.shape[2]))
     with torch.cuda.device(g.device):
         out = launch_dot(g, a, b)

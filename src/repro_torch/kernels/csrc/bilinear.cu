@@ -47,14 +47,6 @@ __global__ void __launch_bounds__(kThreads)
   if (threadIdx.x == 0) partials[item * gridDim.x + blockIdx.x] = acc[0];
 }
 
-// Fixed-order sum of a warp's values; the total lands in lane 0.
-__device__ __forceinline__ float warp_sum(float s) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s += __shfl_down_sync(0xffffffffu, s, off);
-  return s;
-}
-
 // out[l, k] = sum over p of partials[l, p, k], in the order p = lane,
 // lane + 32, ... within a warp, then a fixed shuffle tree.  One warp per item.
 __global__ void sum_partials_kernel(const float* __restrict__ partials,

@@ -1,5 +1,5 @@
 // Shared device code of the port's Eva kernels (bilinear.cu, rank1_update.cu,
-// eva_fused.cu).
+// eva_fused.cu, matvec.cu, eva_f_fused.cu).
 //
 // Work partition.  Every kernel cuts each stack item's flattened G
 // (d_in * d_out elements, row-major) into contiguous chunks of kChunk
@@ -68,8 +68,54 @@ __device__ __forceinline__ void block_sum(float (&v)[K]) {
   }
 }
 
-inline int num_chunks(long long n) {
-  return static_cast<int>((n + kChunk - 1) / kChunk);
+// Fixed-order sum of a warp's values; the total lands in lane 0.
+__device__ __forceinline__ float warp_sum(float s) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s += __shfl_down_sync(0xffffffffu, s, off);
+  return s;
+}
+
+// One element of the rank-one update, scale * (g - coeff * (a_i * b_j)), each
+// product rounded on its own in the reference's order (_rank1_tile in
+// src/repro/kernels/rank1_update.py), so no multiply-add is fused.
+__device__ __forceinline__ float rank1_elem(float g, float a_i, float b_j,
+                                            float coeff, float scale) {
+  return __fmul_rn(scale, __fsub_rn(g, __fmul_rn(coeff, __fmul_rn(a_i, b_j))));
+}
+
+// The emit body of the fused kernels over elements [start, end) of one item:
+// P = rank1_elem(...), out = mu * m + P (kFold) or P, written in f32, and the
+// block's [<out,G>, <out,out>, <G,G>] partial written to dst[0..2] by thread 0.
+// Every thread of the block must call it.
+template <typename T, bool kFold>
+__device__ __forceinline__ void emit_rank1_chunk(
+    const T* __restrict__ gl, const float* __restrict__ al,
+    const float* __restrict__ bl, float coeff, float scale, float mu,
+    const float* __restrict__ ml, float* __restrict__ ol, int start, int end,
+    int d_out, float* __restrict__ dst) {
+  float acc[3] = {0.0f, 0.0f, 0.0f};
+  for (int e = start + threadIdx.x; e < end; e += kThreads) {
+    const int i = e / d_out;
+    const int j = e - i * d_out;
+    const float gv = to_f32(gl[e]);
+    const float p = rank1_elem(gv, al[i], bl[j], coeff, scale);
+    const float o = kFold ? __fadd_rn(__fmul_rn(mu, ml[e]), p) : p;
+    ol[e] = o;
+    acc[0] += o * gv;
+    acc[1] += o * o;
+    acc[2] += gv * gv;
+  }
+  block_sum<3>(acc);
+  if (threadIdx.x == 0) {
+    dst[0] = acc[0];
+    dst[1] = acc[1];
+    dst[2] = acc[2];
+  }
+}
+
+inline int num_chunks(long long n, int chunk = kChunk) {
+  return static_cast<int>((n + chunk - 1) / chunk);
 }
 
 }  // namespace repro

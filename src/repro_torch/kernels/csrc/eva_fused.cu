@@ -36,35 +36,17 @@ __global__ void __launch_bounds__(kThreads)
   const int n = d_in * d_out;
   const long long item = blockIdx.y;
   const T* gl = g + item * n;
-  const float* ml = m + item * n;
+  // m is read only with the fold, and may be null without it
+  const float* ml = kFold ? m + item * n : nullptr;
   float* ol = out + item * n;
   const float* al = a + item * d_in;
   const float* bl = b + item * d_out;
   const float coeff = __fdiv_rn(dot[item], sc[3 * item]);
-  const float scale = sc[3 * item + 1];
-  const float mu = sc[3 * item + 2];
   const int start = blockIdx.x * kChunk;
-  const int end = min(start + kChunk, n);
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  for (int e = start + threadIdx.x; e < end; e += kThreads) {
-    const int i = e / d_out;
-    const int j = e - i * d_out;
-    const float gv = to_f32(gl[e]);
-    const float r = __fmul_rn(coeff, __fmul_rn(al[i], bl[j]));
-    const float p = __fmul_rn(scale, __fsub_rn(gv, r));
-    const float o = kFold ? __fadd_rn(__fmul_rn(mu, ml[e]), p) : p;
-    ol[e] = o;
-    acc[0] += o * gv;
-    acc[1] += o * o;
-    acc[2] += gv * gv;
-  }
-  block_sum<3>(acc);
-  if (threadIdx.x == 0) {
-    float* dst = aux_partials + (item * gridDim.x + blockIdx.x) * 3;
-    dst[0] = acc[0];
-    dst[1] = acc[1];
-    dst[2] = acc[2];
-  }
+  emit_rank1_chunk<T, kFold>(gl, al, bl, coeff, sc[3 * item + 1],
+                             sc[3 * item + 2], ml, ol, start,
+                             min(start + kChunk, n), d_out,
+                             aux_partials + (item * gridDim.x + blockIdx.x) * 3);
 }
 
 template <typename T>
@@ -92,6 +74,7 @@ void launch_emit(dim3 grid, cudaStream_t s, int fold, const void* g,
 
 extern "C" {
 
+// m: (L, d_in, d_out) f32, read only with fold_momentum (else may be null);
 // out: (L, d_in, d_out) f32; aux_partials: (L, chunks, 3) f32 scratch.
 int repro_eva_fused_emit(const void* g, int g_is_bf16, const void* a,
                          const void* b, const void* sc, const void* dot,

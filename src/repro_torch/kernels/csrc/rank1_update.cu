@@ -10,9 +10,9 @@
 // Bound on an H100: bytes.  G is read once and P written once; a, b and the
 // (L, 2) [coeff, scale] pairs are tiny and stay in L1/L2.  Three multiplies
 // and a subtract per element are far below the f32 rate.  Compute is f32 and
-// P has G's dtype.  The products are rounded one at a time (__fmul_rn,
-// __fsub_rn) in the reference's order, scale * (g - coeff * (a_i * b_j)), so
-// the result equals the plain PyTorch version bit for bit.
+// P has G's dtype.  The products are rounded one at a time (rank1_elem in
+// common.cuh) in the reference's order, scale * (g - coeff * (a_i * b_j)),
+// so the result equals the plain PyTorch version bit for bit.
 #include "common.cuh"
 
 namespace repro {
@@ -36,8 +36,8 @@ __global__ void __launch_bounds__(kThreads)
   for (int e = start + threadIdx.x; e < end; e += kThreads) {
     const int i = e / d_out;
     const int j = e - i * d_out;
-    const float r = __fmul_rn(coeff, __fmul_rn(al[i], bl[j]));
-    ol[e] = from_f32<T>(__fmul_rn(scale, __fsub_rn(to_f32(gl[e]), r)));
+    ol[e] = from_f32<T>(
+        rank1_elem(to_f32(gl[e]), al[i], bl[j], coeff, scale));
   }
 }
 

@@ -2,15 +2,16 @@
 
 Counterpart of ``repro/kernels/dispatch.py``, with three impls:
 
-  * ``'cuda'``  — the hand-written Hopper kernels (``csrc/*.cu``).  Given a
-                  CPU tensor, their wrappers run the plain version instead.
+  * ``'cuda'``  — the hand-written Hopper kernels (``csrc/*.cu``), for CUDA
+                  tensors only: given a tensor on any other device,
+                  :func:`resolve` raises.
   * ``'torch'`` — the plain versions in ``ref.py``, on any device.  On a CUDA
                   tensor this path is taken only when the caller names it;
                   a failed build or launch raises, it never falls back here.
   * ``'auto'``  — ``'cuda'`` for a CUDA tensor, ``'torch'`` for a CPU one.
 
 Autotuning and the tile cache of the reference wait for a later change: the
-CUDA kernels have one fixed partition (``csrc/common.cuh``).  Launch counts
+CUDA kernels have one fixed partition each (``csrc/*.cu``).  Launch counts
 live in ``launches.py``.
 """
 from __future__ import annotations
@@ -19,6 +20,7 @@ import torch
 
 from repro_torch.kernels import bilinear as _bil
 from repro_torch.kernels import fused as _fused
+from repro_torch.kernels import matvec as _mv
 from repro_torch.kernels import rank1_update as _r1
 from repro_torch.kernels import ref
 
@@ -31,7 +33,24 @@ def resolve(impl: str, g: torch.Tensor) -> str:
         raise ValueError(f'unknown kernel impl {impl!r}; have {IMPLS}')
     if impl == 'auto':
         return 'cuda' if g.is_cuda else 'torch'
+    if impl == 'cuda' and not g.is_cuda:
+        raise ValueError(f"kernel impl 'cuda' needs CUDA tensors, got one on "
+                         f"{g.device}; use 'auto' or 'torch'")
     return impl
+
+
+def matvec_and_norm(g, a, impl: str = 'auto'):
+    """(aᵀ G, ‖a‖²) for g (d_in, d_out): (d_out,) and () f32."""
+    if resolve(impl, g) == 'torch':
+        return ref.matvec_and_norm_ref(g, a)
+    return _mv.matvec_and_norm(g, a)
+
+
+def matvec_and_norm_stacked(g, a, impl: str = 'auto'):
+    """The same for a stack g (L, d_in, d_out): (L, d_out) and (L,) f32."""
+    if resolve(impl, g) == 'torch':
+        return ref.matvec_and_norm_ref(g, a)
+    return _mv.matvec_and_norm_stacked(g, a)
 
 
 def bilinear_and_norms(g, a, b, impl: str = 'auto'):
@@ -68,3 +87,12 @@ def eva_fused_stacked(g, a, b, gamma: float, m, mu: float,
     if resolve(impl, g) == 'torch':
         return ref.eva_fused_ref(g, a, b, gamma, m, mu, fold_momentum)
     return _fused.eva_fused_stacked(g, a, b, gamma, m, mu, fold_momentum)
+
+
+def eva_f_fused_stacked(g, a, gamma: float, m, mu: float,
+                        fold_momentum: bool = True, impl: str = 'auto'):
+    """Fused Eva-f precondition + epilogue; ``(out, aux)`` as in
+    ``fused.py``."""
+    if resolve(impl, g) == 'torch':
+        return ref.eva_f_fused_ref(g, a, gamma, m, mu, fold_momentum)
+    return _fused.eva_f_fused_stacked(g, a, gamma, m, mu, fold_momentum)

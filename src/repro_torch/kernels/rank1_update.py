@@ -4,13 +4,14 @@ Counterpart of ``repro/kernels/rank1_update.py``.  ``rank1_update_stacked``
 takes g (L, d_in, d_out), a (L, d_in), b (L, d_out) and the per-item
 [coeff, scale] pairs as one (L, 2) f32 device tensor, as the TPU kernel's
 ``cs`` operand; ``rank1_update`` runs one matrix as a stack of one.  Compute
-is f32 and P has G's dtype.  On a CPU tensor the plain version runs.
+is f32 and P has G's dtype.  CUDA tensors only: ``dispatch.py`` routes CPU
+tensors to the plain version.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, launches, ref
+from repro_torch.kernels import build, launches
 from repro_torch.kernels.bilinear import check_operands
 
 _SIGNATURES = {
@@ -22,8 +23,6 @@ _SIGNATURES = {
 def rank1_update_stacked(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          cs: torch.Tensor) -> torch.Tensor:
     """P_l = cs[l, 1] · (G_l − cs[l, 0] · a_l b_lᵀ), one launch."""
-    if g.device.type == 'cpu':
-        return ref.rank1_update_ref(g, a, b, cs[..., 0], cs[..., 1])
     L, d_in, d_out = g.shape
     check_operands(g, a, b, cs, widths=(d_in, d_out, 2))
     lib = build.library('rank1_update', _SIGNATURES)

@@ -3,8 +3,8 @@
 Counterpart of ``repro/kernels/ref.py``.  Layouts: g (..., d_in, d_out),
 a (..., d_in), b (..., d_out); any leading stack dims broadcast.  Every
 reduction is in f32 whatever the input dtype, as in the kernels.
-``dispatch.py`` routes the ``'torch'`` impl here, and the kernel wrappers
-take these for tensors that lie on the CPU.
+``dispatch.py`` routes here the ``'torch'`` impl and, under ``'auto'``,
+every tensor that lies on the CPU.
 """
 from __future__ import annotations
 
@@ -15,6 +15,18 @@ F32 = torch.float32
 
 def _as_f32(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=F32, device=like.device)
+
+
+def matvec_ref(g, a):
+    """u = aᵀ G — contraction over d_in.  (..., d_in, d_out), (..., d_in)
+    -> (..., d_out) f32."""
+    return torch.einsum('...io,...i->...o', g.to(F32), a.to(F32))
+
+
+def matvec_and_norm_ref(g, a):
+    """(aᵀ G, ‖a‖²) -> ((..., d_out) f32, (...) f32)."""
+    a32 = a.to(F32)
+    return matvec_ref(g, a), (a32 * a32).sum(-1)
 
 
 def bilinear_ref(g, a, b):
@@ -49,7 +61,17 @@ def eva_precondition_ref(g, a, b, gamma: float):
                             torch.full_like(denom, 1.0 / gamma))
 
 
+def eva_f_precondition_ref(g, a, gamma: float):
+    """Eva-f (Eq. 21): P = (G − a (aᵀG) / (γ + ‖a‖²)) / γ."""
+    u = matvec_ref(g, a)
+    a32 = a.to(F32)
+    denom = gamma + (a32 * a32).sum(-1)
+    outer = a32[..., :, None] * u[..., None, :]
+    return ((g.to(F32) - outer / denom[..., None, None]) / gamma).to(g.dtype)
+
+
 def _fused_epilogue(g32, p, m, mu, fold_momentum):
+    # m is read only with the fold; without it m may be None
     out = mu * m.to(F32) + p if fold_momentum else p
     aux = torch.stack([(out * g32).sum((-2, -1)),
                        (out * out).sum((-2, -1)),
@@ -72,4 +94,16 @@ def eva_fused_ref(g, a, b, gamma: float, m, mu: float,
     coeff = (dot / denom)[..., None, None]
     # multiply by the reciprocal, as the kernel's scale operand does
     p = (1.0 / gamma) * (g32 - coeff * (a32[..., :, None] * b32[..., None, :]))
+    return _fused_epilogue(g32, p, m, mu, fold_momentum)
+
+
+def eva_f_fused_ref(g, a, gamma: float, m, mu: float,
+                    fold_momentum: bool = True):
+    """Plain twin of the fused Eva-f kernel; the contract of
+    :func:`eva_fused_ref` with u = aᵀG."""
+    g32 = g.to(F32)
+    a32 = a.to(F32)
+    u = matvec_ref(g, a)
+    coeff = (1.0 / (gamma + (a32 * a32).sum(-1)))[..., None, None]
+    p = (1.0 / gamma) * (g32 - coeff * (a32[..., :, None] * u[..., None, :]))
     return _fused_epilogue(g32, p, m, mu, fold_momentum)

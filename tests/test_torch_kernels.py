@@ -1,8 +1,9 @@
-"""The port's kernel wrappers against the JAX Pallas kernels (interpret
+"""The port's kernel dispatch against the JAX Pallas kernels (interpret
 mode), kernel rows 1-5: bilinear[_stacked], rank1_update[_stacked] and
-eva_fused_stacked.  On a CPU tensor a wrapper runs its plain PyTorch version
-and launches nothing; the CUDA kernels themselves are held against the same
-plain versions on the card (marked ``gpu``, and by ``chip_smoke.py``).
+eva_fused_stacked.  On a CPU tensor ``impl='auto'`` runs the plain PyTorch
+version and launches nothing, ``impl='cuda'`` and the kernel wrappers raise;
+the CUDA kernels themselves are held against the same plain versions on the
+card (marked ``gpu``, and by ``chip_smoke.py``).
 
 Tolerances: 1e-5 (f32) and 3e-2 (bf16) as ``tests/test_kernels.py``; a
 bilinear sum is held against its own scale Σ|a_i G_ij b_j|; the fused output
@@ -22,6 +23,7 @@ from repro.kernels import rank1_update as jr1  # noqa: E402
 from repro_torch.kernels import bilinear as bil  # noqa: E402
 from repro_torch.kernels import dispatch, launches, ref  # noqa: E402
 from repro_torch.kernels import fused  # noqa: E402
+from repro_torch.kernels import matvec as mv  # noqa: E402
 from repro_torch.kernels import rank1_update as r1  # noqa: E402
 
 SHAPES = [(8, 8), (64, 48), (128, 128), (200, 136), (512, 384), (1000, 513)]
@@ -67,10 +69,10 @@ def test_bilinear_matches_pallas(shape, dtype, stacked):
     (jg, ja, jb, _), (g, a, b, _) = _mk(shape, dtype, lead)
     if stacked:
         want = np.asarray(jbil.bilinear_stacked(jg, ja, jb, **BLOCK))
-        got = bil.bilinear_stacked(g, a, b).numpy()
+        got = dispatch.bilinear_and_norms_stacked(g, a, b)[0].numpy()
     else:
         want = np.asarray(jbil.bilinear(jg, ja, jb, **BLOCK))
-        got = bil.bilinear(g, a, b).numpy()
+        got = dispatch.bilinear_and_norms(g, a, b)[0].numpy()
     assert got.dtype == np.float32 and got.shape == want.shape
     assert np.all(np.abs(got - want) <= TOL[dtype] * _bilinear_scale(g, a, b))
 
@@ -83,15 +85,15 @@ def test_rank1_update_matches_pallas(shape, dtype, stacked):
     (jg, ja, jb, _), (g, a, b, _) = _mk(shape, dtype, lead, seed=1)
     coeff = np.float32(0.37) + np.zeros(lead, np.float32)
     scale = np.float32(2.5) + np.zeros(lead, np.float32)
-    cs = torch.from_numpy(np.stack([coeff, scale], -1))
+    c, s = torch.as_tensor(coeff), torch.as_tensor(scale)
     if stacked:
         want = jr1.rank1_update_stacked(jg, ja, jb, jnp.asarray(coeff),
                                         jnp.asarray(scale), **BLOCK)
-        got = r1.rank1_update_stacked(g, a, b, cs)
+        got = dispatch.rank1_update_stacked(g, a, b, c, s)
     else:
         want = jr1.rank1_update(jg, ja, jb, jnp.float32(0.37),
                                 jnp.float32(2.5), **BLOCK)
-        got = r1.rank1_update(g, a, b, cs)
+        got = dispatch.rank1_update(g, a, b, c, s)
     assert got.dtype == g.dtype
     np.testing.assert_allclose(got.float().numpy(),
                                np.asarray(want, np.float32),
@@ -105,7 +107,7 @@ def test_eva_fused_matches_pallas(shape, dtype, fold):
     (jg, ja, jb, jm), (g, a, b, m) = _mk(shape, dtype, (2,), seed=2)
     want, want_aux = jfused.eva_fused_stacked(jg, ja, jb, GAMMA, jm, MU,
                                               fold_momentum=fold, **BLOCK)
-    got, aux = fused.eva_fused_stacked(g, a, b, GAMMA, m, MU, fold)
+    got, aux = dispatch.eva_fused_stacked(g, a, b, GAMMA, m, MU, fold)
     assert got.dtype == torch.float32 and aux.shape == (2, 3)
     np.testing.assert_allclose(GAMMA * got.numpy(),
                                GAMMA * np.asarray(want), atol=1e-6, rtol=1e-6)
@@ -115,8 +117,13 @@ def test_eva_fused_matches_pallas(shape, dtype, fold):
 
 @pytest.mark.parametrize('impl', ['auto', 'cuda', 'torch'])
 def test_dispatch_impls_agree_on_cpu(impl):
-    """Every impl takes the plain path for CPU tensors, bit for bit."""
+    """'auto' and 'torch' take the plain path for CPU tensors, bit for bit;
+    'cuda' refuses them instead of running the plain path in its place."""
     _, (g, a, b, m) = _mk((64, 48), 'float32', (3,), seed=3)
+    if impl == 'cuda':
+        with pytest.raises(ValueError, match="'cuda' needs CUDA tensors"):
+            dispatch.bilinear_and_norms_stacked(g, a, b, impl=impl)
+        return
     dot, sq = dispatch.bilinear_and_norms_stacked(g, a, b, impl=impl)
     want_dot, want_sq = ref.bilinear_and_norms_ref(g, a, b)
     assert torch.equal(dot, want_dot) and torch.equal(sq, want_sq)
@@ -126,6 +133,20 @@ def test_dispatch_impls_agree_on_cpu(impl):
     out, aux = dispatch.eva_fused_stacked(g, a, b, GAMMA, m, MU, impl=impl)
     r_out, r_aux = ref.eva_fused_ref(g, a, b, GAMMA, m, MU)
     assert torch.equal(out, r_out) and torch.equal(aux, r_aux)
+
+
+@pytest.mark.parametrize('wrapper', [
+    lambda g, a, b, m: bil.bilinear_and_norms_stacked(g, a, b),
+    lambda g, a, b, m: r1.rank1_update_stacked(g, a, b, torch.ones(3, 2)),
+    lambda g, a, b, m: fused.eva_fused_stacked(g, a, b, GAMMA, m, MU),
+    lambda g, a, b, m: mv.matvec_and_norm_stacked(g, a),
+    lambda g, a, b, m: fused.eva_f_fused_stacked(g, a, GAMMA, m, MU),
+], ids=['bilinear', 'rank1_update', 'eva_fused', 'matvec', 'eva_f_fused'])
+def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
+    """A kernel wrapper launches its kernel or raises: it has no CPU path."""
+    _, (g, a, b, m) = _mk((64, 48), 'float32', (3,), seed=3)
+    with pytest.raises(ValueError, match='must be a CUDA tensor'):
+        wrapper(g, a, b, m)
 
 
 def test_dispatch_rejects_unknown_impl():

@@ -29,6 +29,7 @@ from repro_torch.models import simple  # noqa: E402
 from repro_torch.train.step import init_opt_state, make_train_step  # noqa
 
 RTOL, ATOL = 1e-4, 1e-5
+RANK_ONE = ('eva', 'eva_f', 'eva_s')   # the reference runs their Pallas kernels
 
 CASES = {
     'mlp': dict(dims=[16, 32, 32, 4], loss='classifier', steps=25,
@@ -65,7 +66,7 @@ def _run_both(case, name='eva', microbatches=1, **opt_kw):
                               jkv.flatten_params(jp).items()}, 'cpu')
 
     jopt, jcap = jmake(name, lr=case['lr'], **(
-        dict(opt_kw, kernel_impl='pallas_interpret') if name == 'eva'
+        dict(opt_kw, kernel_impl='pallas_interpret') if name in RANK_ONE
         else opt_kw))
     taps_fn = (lambda p: jm.make_taps(batch, jcap)) if jcap.needs_taps \
         else None
