@@ -15,7 +15,10 @@ Phases; any failure stops the run with a non-zero exit:
               autoencoder's layer shapes, two stacks and two ragged shapes,
               f32 and bf16; stacked against per-item bit for bit; each fused
               kernel with ``fold_momentum=False`` against its composed
-              kernels.
+              kernels.  matvec_cols on the reference test's band shapes and
+              the autoencoder's 784 x 1000 x 1000, f32 and bf16: against its
+              plain version, its W=2 and W=4 band partials summed against
+              the float64 product, stacked against per item bit for bit.
 4. main     — the paper's full-width autoencoder
               (784-1000-500-250-30-250-500-1000-784, batch 1000) trained by
               Eva, Eva-f and Eva-s, 20 steps composed and 20 fused each,
@@ -25,8 +28,17 @@ Phases; any failure stops the run with a non-zero exit:
               step's losses, and each step's parameter change against the
               plain step's from the same state; each kernel against its
               plain version on the last inputs the path gave it.
-5. stacked  — a few Eva and Eva-f steps of MLP 784-1000-1000-1000-1000-10,
-              whose three 1000x1000 layers form one stacked bucket.
+4b. solvers — the same autoencoder trained by K-FAC (CG) and Shampoo (the
+              binomial series) with the factor sides of width 1000 sharded
+              (``FactorShardConfig(head_policy='shard',
+              shard_threshold=1000, solve_iters=32)``), 20 steps composed and
+              20 fused each, held to the plain path (``impl='torch'``) as in
+              phase 4, 128 matvec_cols launches per step; then 20 dense
+              steps of each (no hand kernel) and how far the first shard
+              step lies from the dense one.
+5. stacked  — a few Eva, Eva-f and K-FAC (sharded) steps of MLP
+              784-1000-1000-1000-1000-10, whose three 1000x1000 layers form
+              one stacked bucket.
 6. times    — CUDA-event times of each kernel, its plain version and the
               one-call library equivalent at the autoencoder's shapes, eager
               and replayed from a CUDA graph; the step times of each
@@ -38,8 +50,8 @@ The line before the card line is ``{"kernels": [...]}``; the last line is
 """
 from __future__ import annotations
 
+import collections
 import contextlib
-import itertools
 import json
 import statistics
 import subprocess
@@ -71,6 +83,17 @@ MAIN_PATHS = {
     'eva': (0.15, ('bilinear', 'rank1_update'), ('eva_fused',)),
     'eva_f': (0.15, ('matvec', 'rank1_update'), ('eva_f_fused',)),
     'eva_s': (0.3, ('bilinear', 'rank1_update'), ('eva_fused',)),
+}
+# matvec_cols: (R, m, n) band shapes of tests/test_kernels.py (R = 5) and the
+# autoencoder's 784-row gradient against a 1000-wide factor
+COLS_SHAPES = [(5, 64, 48), (5, 200, 136), (5, 512, 384), (784, 1000, 1000)]
+COLS_TOL = 1e-5                 # of each output's scale Σ_k |a_rk g_kc|
+# optimizer -> (lr of benchmarks/fig4_autoencoder.py, the sharded-factor
+# config): the four factor sides of width 1000 trip, 32 band products each
+SHARD = dict(head_policy='shard', shard_threshold=1000, solve_iters=32)
+SOLVER_PATHS = {
+    'kfac': (0.15, dict(SHARD, solver='cg')),
+    'shampoo': (0.3, dict(SHARD, solver='binomial')),
 }
 
 
@@ -149,7 +172,7 @@ def kernels_phase(torch):
     from repro_torch.kernels import rank1_update as r1
 
     err = {'bilinear': 0.0, 'rank1_update': 0.0, 'eva_fused': 0.0,
-           'matvec': 0.0, 'eva_f_fused': 0.0}
+           'matvec': 0.0, 'eva_f_fused': 0.0, 'matvec_cols': 0.0}
     cases = [((1,) + s, True) for s in AE_SHAPES] + \
         [(s, False) for s in STACKS] + [((1,) + s, False) for s in RAGGED]
     for seed, (shape, on_path) in enumerate(cases):
@@ -247,8 +270,54 @@ def kernels_phase(torch):
                   f'{ec.max().item():.2e}; matvec err {emv:.2e} '
                   f'({emv_rel:.2e} of scale), eva_f_fused err {efc:.2e}, '
                   f'vs composed {efc_comp:.2e}', flush=True)
+    for seed, rmn in enumerate(COLS_SHAPES):
+        for dtype in (torch.float32, torch.bfloat16):
+            e = _matvec_cols_checks(torch, rmn, dtype, 50 + seed)
+            if rmn == COLS_SHAPES[-1] and dtype == torch.float32:
+                err['matvec_cols'] = e
     torch.cuda.synchronize()
     return err
+
+
+def _matvec_cols_checks(torch, rmn, dtype, seed):
+    """Rows 9-10 on one (R, m, n) case, a stack of two: the kernel within
+    COLS_TOL of each output's scale of its plain version; the W=2 and W=4
+    band partials (``factor_sharded._band`` / ``_matvec_partial`` with
+    explicit ranks, through the kernel) summed on the card against the
+    float64 product within tests/test_kernels.py's atol 1e-4·√m, rtol 1e-4;
+    stacked against per item bit for bit.  Returns the max abs error
+    against the plain version."""
+    from repro_torch.core import factor_sharded as fsh
+    from repro_torch.kernels import matvec as mv
+    from repro_torch.kernels import ref
+    r, m, n = rmn
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    g = torch.randn((2, m, n), generator=gen, device='cuda').to(dtype)
+    a = torch.randn((2, r, m), generator=gen, device='cuda')
+    tag = f'matvec_cols {r}x{m}x{n} {str(dtype).rsplit(".", 1)[-1]}'
+    u = mv.matvec_cols_stacked(g, a)
+    e = (u - ref.matvec_cols_ref(g, a)).abs()
+    scale = ref.matvec_cols_ref(g.abs(), a.abs())
+    require(bool((e <= COLS_TOL * scale).all()),
+            f'{tag}: err {e.max().item():.3e} > {COLS_TOL} x scale')
+    whole = torch.matmul(a.double(), g.double())
+    worst = {}
+    for world in (2, 4):
+        total = sum(fsh._matvec_partial(fsh._band(g, world, rank), a, world,
+                                        rank, impl='cuda')
+                    for rank in range(world))
+        ew = (total.double() - whole).abs()
+        lim = 1e-4 * m ** 0.5 + 1e-4 * whole.abs()
+        require(bool((ew <= lim).all()),
+                f'{tag}: W={world} band sum err {ew.max().item():.3e}')
+        worst[world] = (ew / lim).max().item()
+    for i in range(2):
+        require(torch.equal(mv.matvec_cols(g[i], a[i]), u[i]),
+                f'{tag}: stacked != item {i}')
+    print(f'  ok {tag}: err {e.max().item():.2e} '
+          f'({(e / scale).max().item():.2e} of scale); band sums W=2 '
+          f'{worst[2]:.2e}, W=4 {worst[4]:.2e} of their limit', flush=True)
+    return e.max().item()
 
 
 def _eva_f_checks(torch, g, a, m, tag, float32):
@@ -318,13 +387,27 @@ def _eva_f_checks(torch, g, a, m, tag, float32):
 # 4. the main path: full-width autoencoder, composed and fused
 
 
-def _train(torch, model, params0, batches, *, fused, impl, lr, name='eva'):
+def _make_opt(name, lr, fused, impl, shard=None):
+    """(optimizer, capture, factor config): the rank-one optimizers take
+    the kernel impl as ``kernel_impl``; K-FAC and Shampoo take it with the
+    sharded-factor config ``shard`` (None: every factor dense)."""
+    from repro_torch.core.factor_sharded import FactorShardConfig
     from repro_torch.core.registry import make_optimizer
+    if name in MAIN_PATHS:
+        opt, cap = make_optimizer(name, lr=lr, fused=fused, kernel_impl=impl)
+        return opt, cap, None
+    opt, cap = make_optimizer(name, lr=lr, fused=fused)
+    return opt, cap, (None if shard is None
+                      else FactorShardConfig(**shard, impl=impl))
+
+
+def _train(torch, model, params0, batches, *, fused, impl, lr, name='eva',
+           shard=None):
     from repro_torch.train.step import init_opt_state, make_train_step
-    opt, cap = make_optimizer(name, lr=lr, fused=fused, kernel_impl=impl)
+    opt, cap, factor = _make_opt(name, lr, fused, impl, shard)
     state = init_opt_state(model, opt, cap, params0, batches[0],
-                           device='cuda')
-    step = make_train_step(model, opt, cap, device='cuda')
+                           factor=factor, device='cuda')
+    step = make_train_step(model, opt, cap, factor=factor, device='cuda')
     params, losses = params0, []
     for batch in batches:
         params, state, metrics = step(params, state, batch)
@@ -340,20 +423,20 @@ def _compare_trajectories(kernel, plain, what):
 
 
 def _compare_steps(torch, model, params0, batches, *, fused, lr, name,
-                   what):
+                   what, shard=None):
     """Take each step of the kernel path's run a second time with the plain
     step, from the same parameters, state and batch, and hold each leaf's
     change to PARAM_RTOL of the plain change's norm.  The parameters keep
     moving where the loss barely does, and one step from one state carries
     no drift from earlier steps.  Returns the largest ratio."""
-    from repro_torch.core.registry import make_optimizer
     from repro_torch.train.step import init_opt_state, make_train_step
     steps = {}
     for impl in ('auto', 'torch'):
-        opt, cap = make_optimizer(name, lr=lr, fused=fused, kernel_impl=impl)
-        steps[impl] = make_train_step(model, opt, cap, device='cuda')
+        opt, cap, factor = _make_opt(name, lr, fused, impl, shard)
+        steps[impl] = make_train_step(model, opt, cap, factor=factor,
+                                      device='cuda')
     state = init_opt_state(model, opt, cap, params0, batches[0],
-                           device='cuda')
+                           factor=factor, device='cuda')
     params, worst = params0, 0.0
     for i, batch in enumerate(batches):
         plain, _, _ = steps['torch'](params, state, batch)
@@ -387,25 +470,29 @@ def _path_kernels():
                    ref.matvec_and_norm_ref),
         'eva_fused': (fused, 'eva_fused_stacked', ref.eva_fused_ref),
         'eva_f_fused': (fused, 'eva_f_fused_stacked', ref.eva_f_fused_ref),
+        'matvec_cols': (matvec, 'matvec_cols_stacked', ref.matvec_cols_ref),
     }
 
 
 @contextlib.contextmanager
 def _recording(torch):
     """While a path runs, keep a copy of the arguments of each kernel's last
-    call per operand shape; yields ``{(kernel, shape): (args, kwargs)}``."""
-    seen, saved = {}, []
+    call per operand shape, and count the calls per shape; yields
+    ``({(kernel, shape): (args, kwargs)}, {(kernel, shape): calls})``."""
+    seen, calls, saved = {}, collections.Counter(), []
     for name, (mod, attr, _) in _path_kernels().items():
         fn = getattr(mod, attr)
 
         def spy(*args, _fn=fn, _name=name, **kw):
-            seen[(_name, tuple(args[0].shape))] = (
+            key = (_name, tuple(args[0].shape))
+            seen[key] = (
                 [x.clone() if torch.is_tensor(x) else x for x in args], kw)
+            calls[key] += 1
             return _fn(*args, **kw)
         saved.append((mod, attr, fn))
         setattr(mod, attr, spy)
     try:
-        yield seen
+        yield seen, calls
     finally:
         for mod, attr, fn in saved:
             setattr(mod, attr, fn)
@@ -426,7 +513,13 @@ def _check_path_inputs(torch, seen, what):
         g, a = args[0], args[1]
         tol = TOL[str(g.dtype).rsplit('.', 1)[-1]]
         tag = f'{what}: {name} on the path\'s {"x".join(map(str, shape))}'
-        if name in ('bilinear', 'matvec'):
+        if name == 'matvec_cols':
+            lim = COLS_TOL * ref.matvec_cols_ref(g.abs(), a.abs())
+            e = (got - want).abs()
+            require(bool((e <= lim).all()), f'{tag}: err {e.max().item():.3e}'
+                    f' beyond its limit')
+            share = (e / torch.where(lim > 0, lim, 1.0)).max().item()
+        elif name in ('bilinear', 'matvec'):
             if name == 'bilinear':
                 lim = tol * ref.bilinear_ref(g.abs(), a.abs(), args[2].abs())
             else:
@@ -477,7 +570,7 @@ def main_phase(torch, model, params0, batches):
     for name, (lr, composed, fused_names) in MAIN_PATHS.items():
         for fused in (False, True):
             tag = f'{name} fused={fused}'
-            with _recording(torch) as seen:
+            with _recording(torch) as (seen, _):
                 launches.reset()
                 losses, *_ = _train(torch, model, params0, batches,
                                     fused=fused, impl='auto', lr=lr,
@@ -522,11 +615,110 @@ def main_phase(torch, model, params0, batches):
 
 
 # ---------------------------------------------------------------------------
+# 4b. K-FAC and Shampoo with sharded factor heads
+
+
+def _finite_and_falling(losses, tag):
+    require(all(map(lambda x: x == x and abs(x) < float('inf'), losses)),
+            f'{tag}: non-finite loss {losses}')
+    require(losses[-1] < losses[0],
+            f'{tag}: loss did not fall ({losses[0]} -> {losses[-1]})')
+
+
+def _rel_change(p0, pa, pb):
+    """‖Δa − Δb‖ / ‖Δb‖ over all leaves, Δ = p − p0."""
+    num = den = 0.0
+    for k, v in p0.items():
+        da, db = pa[k].double() - v.double(), pb[k].double() - v.double()
+        num += ((da - db) ** 2).sum().item()
+        den += (db ** 2).sum().item()
+    return (num / den) ** 0.5
+
+
+def solver_phase(torch, model, params0, batches):
+    phase('4b solvers: K-FAC and Shampoo, factor sides of width 1000 '
+          'sharded, on the full-width autoencoder')
+    from repro_torch.core import bucketing
+    from repro_torch.core import factor_sharded as fsh
+    from repro_torch.kernels import launches
+    plan = bucketing.build_plan({p: params0[p]
+                                 for p in sorted(model.precon_paths())})
+    _, heads = fsh.split_plan(plan, fsh.FactorShardConfig(**SHARD))
+    sides = sum(p == 'shard' for pol in heads.values() for p in pol)
+    require(sides == 4, f'{sides} sharded sides at threshold 1000: {heads}')
+    want_per_step = sides * SHARD['solve_iters']
+    counts = {k: 0 for k in launches.COUNTS}
+    per_step, traj, info = {}, {}, {}
+    for name, (lr, shard) in SOLVER_PATHS.items():
+        for fused in (False, True):
+            tag = f'{name} shard fused={fused}'
+            with _recording(torch) as (seen, _):
+                launches.reset()
+                losses, *_ = _train(torch, model, params0, batches,
+                                    fused=fused, impl='auto', lr=lr,
+                                    name=name, shard=shard)
+                got = launches.snapshot()
+            want = {k: (want_per_step * STEPS if k == 'matvec_cols' else 0)
+                    for k in launches.COUNTS}
+            require(got == want, f'{tag}: launches {got} != {want}')
+            for k, v in got.items():
+                counts[k] += v
+            per_step[tag] = {k: v // STEPS for k, v in got.items() if v}
+            _finite_and_falling(losses, tag)
+            launches.reset()
+            plain, *_ = _train(torch, model, params0, batches, fused=fused,
+                               impl='torch', lr=lr, name=name, shard=shard)
+            require(sum(launches.snapshot().values()) == 0,
+                    f"{tag}: impl='torch' launched a kernel")
+            _compare_trajectories(losses, plain, f'autoencoder {tag}')
+            prel = _compare_steps(torch, model, params0, batches,
+                                  fused=fused, lr=lr, name=name,
+                                  what=f'autoencoder {tag}', shard=shard)
+            kerr, _ = _check_path_inputs(torch, seen, f'autoencoder {tag}')
+            require(set(kerr) == {'matvec_cols'}, f'{tag}: kernels {kerr}')
+            traj[tag] = {'cuda': losses, 'torch': plain}
+            rel = max(abs(k - p) / abs(p) for k, p in zip(losses, plain))
+            info[tag] = {'max_rel_loss_diff': rel, 'step_change_vs_plain':
+                         prel, 'err_share_of_limit': kerr['matvec_cols']}
+            print(f'  {tag}: launches {got}; loss {losses[0]:.6f} -> '
+                  f'{losses[-1]:.6f}; max rel diff to plain {rel:.2e}; '
+                  f'step change vs plain {prel:.2e} of its norm; on the '
+                  f'path\'s last inputs matvec_cols err '
+                  f'{kerr["matvec_cols"]:.2e} of its limit', flush=True)
+        # dense: explicit inverses (K-FAC) or eigh roots (Shampoo) of every
+        # side, no hand kernel; how far the shard step lies from it
+        launches.reset()
+        dense, *_ = _train(torch, model, params0, batches, fused=False,
+                           impl='auto', lr=lr, name=name)
+        require(sum(launches.snapshot().values()) == 0,
+                f'{name} dense launched a kernel')
+        _finite_and_falling(dense, f'{name} dense')
+        _, _, p_dense1, _ = _train(torch, model, params0, batches[:1],
+                                   fused=False, impl='auto', lr=lr,
+                                   name=name)
+        _, _, p_shard1, _ = _train(torch, model, params0, batches[:1],
+                                   fused=False, impl='auto', lr=lr,
+                                   name=name, shard=shard)
+        gap = _rel_change(params0, p_shard1, p_dense1)
+        shard_losses = traj[f'{name} shard fused=False']['cuda']
+        info[f'{name} dense'] = {'losses': dense,
+                                 'first_step_shard_vs_dense': gap}
+        print(f'  {name} dense: loss {dense[0]:.6f} -> {dense[-1]:.6f} '
+              f'(shard: {shard_losses[-1]:.6f}); the first shard step lies {gap:.3e} of the dense step\'s '
+              f'norm from it (information, not a gate)', flush=True)
+    print(json.dumps({'solver_losses': traj}))
+    print(json.dumps({'solver_checks': info}))
+    print(json.dumps({'solver_launches_per_step': per_step}))
+    return counts, per_step
+
+
+# ---------------------------------------------------------------------------
 # 5. a stacked bucket
 
 
 def stacked_phase(torch):
-    phase('5 stacked bucket: MLP 784-1000-1000-1000-1000-10, Eva and Eva-f')
+    phase('5 stacked bucket: MLP 784-1000-1000-1000-1000-10, Eva, Eva-f '
+          'and K-FAC (sharded)')
     from repro_torch.core import bucketing
     from repro_torch.data.synthetic import ClassStream
     from repro_torch.kernels import launches
@@ -562,6 +754,39 @@ def stacked_phase(torch):
             print(f'  {name} fused={fused}: buckets '
                   f'{[b.key for b in plan.buckets]}; launches {got}; loss '
                   f'{losses[0]:.4f} -> {losses[-1]:.4f}', flush=True)
+    # K-FAC, threshold 1000: the 3x1000x1000 bucket shards both sides
+    # (matvec_cols_stacked, L=3), fc0 its out side and fc4 its in side
+    # (matvec_cols); 32 CG iterations each
+    _, shard = SOLVER_PATHS['kfac']
+    iters = shard['solve_iters']
+    for fused in (False, True):
+        tag = f'MLP kfac shard fused={fused}'
+        with _recording(torch) as (seen, calls):
+            launches.reset()
+            losses, *_ = _train(torch, model, params0, batches, fused=fused,
+                                impl='auto', lr=0.1, name='kfac',
+                                shard=shard)
+            got = launches.snapshot()
+        n = len(batches)
+        # fc0's out and fc4's in factor are both 1000 x 1000 bands
+        want_calls = {('matvec_cols', (3, 1000, 1000)): 2 * iters * n,
+                      ('matvec_cols', (1, 1000, 1000)): 2 * iters * n}
+        require(dict(calls) == want_calls, f'{tag}: calls {dict(calls)}')
+        require(got['matvec_cols'] == 4 * iters * n and
+                sum(got.values()) == got['matvec_cols'],
+                f'{tag}: launches {got}')
+        plain, *_ = _train(torch, model, params0, batches, fused=fused,
+                           impl='torch', lr=0.1, name='kfac', shard=shard)
+        _compare_trajectories(losses, plain, tag)
+        prel = _compare_steps(torch, model, params0, batches, fused=fused,
+                              lr=0.1, name='kfac', what=tag, shard=shard)
+        kerr, _ = _check_path_inputs(torch, seen, tag)
+        _finite_and_falling(losses, tag)
+        print(f'  kfac shard fused={fused}: launches per step '
+              f'{got["matvec_cols"] // n} ({2 * iters} stacked L=3); loss '
+              f'{losses[0]:.4f} -> {losses[-1]:.4f}; step change vs plain '
+              f'{prel:.2e} of its norm; matvec_cols err '
+              f'{kerr["matvec_cols"]:.2e} of its limit', flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -611,12 +836,12 @@ def _bound(n_bytes, n_flops):
 
 
 def times_phase(torch, err, counts, per_step, model, params0, batches):
-    phase('6 times at the autoencoder shapes (one step = 8 layers)')
+    phase('6 times at the autoencoder shapes (one step = 8 layers; rows 9-10:'
+          ' one step = 128 band products)')
     from repro_torch.kernels import bilinear as bil
     from repro_torch.kernels import fused, ref
     from repro_torch.kernels import matvec as mv
     from repro_torch.kernels import rank1_update as r1
-    iters = 100
     layers = []
     for seed, (d_in, d_out) in enumerate(AE_SHAPES):
         g, a, b, m = _inputs(torch, (d_in, d_out), torch.float32, 100 + seed)
@@ -678,9 +903,34 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
                    'src/repro/kernels/matvec.py:57', [6, 7]),
         'eva_f_fused': ('src/repro_torch/kernels/csrc/eva_f_fused.cu',
                         'src/repro/kernels/fused.py:194', [8]),
+        'matvec_cols': ('src/repro_torch/kernels/csrc/matvec_cols.cu',
+                        'src/repro/kernels/matvec.py:96', [9, 10]),
     }
+    # rows 9-10: one K-FAC or Shampoo step's band products, 32 solver
+    # iterations on each sharded side (R = 784, 500, 500, 784 vectors
+    # against a symmetric 1000 x 1000 factor): 128 calls
+    cols = []
+    for seed, r in enumerate((784, 500, 500, 784)):
+        gen = torch.Generator(device='cuda').manual_seed(200 + seed)
+        x = torch.randn((1000, 1000), generator=gen, device='cuda')
+        cols.append((((x + x.T) / 2).contiguous(),
+                     torch.randn((r, 1000), generator=gen, device='cuda')))
+    reps = SHARD['solve_iters']
+    work['matvec_cols'] = (
+        reps * sum(4 * (a.numel() + g.numel() + a.shape[0] * g.shape[1])
+                   for g, a in cols),
+        reps * sum(2 * a.shape[0] * g.shape[0] * g.shape[1]
+                   for g, a in cols))
+    fns['matvec_cols'] = (
+        lambda: [mv.matvec_cols(g, a) for _ in range(reps) for g, a in cols],
+        lambda: [ref.matvec_cols_ref(g, a) for _ in range(reps)
+                 for g, a in cols],
+        # TF32 is off (phase 1): the library product is full f32
+        lambda: [torch.matmul(a, g) for _ in range(reps) for g, a in cols])
+    row_iters = {'matvec_cols': 5}
     rows = []
     for name, (kern, plain, lib) in fns.items():
+        iters = row_iters.get(name, 100)
         bound_ms, bound_by = _bound(*work[name])
         row = {
             'name': name, 'route': 'cuda', 'source': meta[name][0],
@@ -696,16 +946,31 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'library_ms': None if lib is None else _time_ms(torch, lib, iters),
         }
+        if name == 'matvec_cols':
+            row['library'] = ('torch.matmul, allow_tf32='
+                              f'{torch.backends.cuda.matmul.allow_tf32}')
         rows.append(row)
         print(f'  {name}: ' + ', '.join(
             f'{key} {row[key]:.4f}' for key in
             ('ms', 'graph_ms', 'plain_ms', 'plain_graph_ms', 'bound_ms')),
             flush=True)
 
-    steps = _step_times(torch, model, params0, batches)
+    variants = _main_variants()
+    steps = _step_times(torch, model, params0, batches, variants,
+                        grads_only=list(MAIN_PATHS), rounds=5, per_round=10)
     print(json.dumps({'ae_step_ms': steps}))
-    print(json.dumps({'ae_profile': _profile(torch, model, params0, batches,
-                                             steps)}))
+    cuda = {k: v for k, v in variants.items() if k.endswith('_cuda_ms')}
+    print(json.dumps({'ae_profile': _profile(
+        torch, model, params0, batches, steps, cuda, n=10)}))
+    # K-FAC and Shampoo: fewer, shorter rounds (Shampoo's dense sides run
+    # eigh every step)
+    variants = _solver_variants()
+    steps = _step_times(torch, model, params0, batches, variants,
+                        grads_only=['kfac'], rounds=3, per_round=3)
+    print(json.dumps({'solver_step_ms': steps}))
+    cuda = {k: v for k, v in variants.items() if k.endswith('_cuda_ms')}
+    print(json.dumps({'solver_profile': _profile(
+        torch, model, params0, batches, steps, cuda, n=3)}))
     return rows
 
 
@@ -713,35 +978,34 @@ def _median_spread(xs):
     return {'median': statistics.median(xs), 'min': min(xs), 'max': max(xs)}
 
 
-def _step_times(torch, model, params0, batches, rounds=5, per_round=10):
+def _step_times(torch, model, params0, batches, variants, grads_only,
+                rounds, per_round):
     """ms per step on the host clock (each timed window ends in a
-    synchronize): for each optimizer the forward + backward alone with its
-    capture, and the composed and fused steps with the kernels and with the
-    plain path.  The variants run in turns, the order reversed every round,
-    and each reports its median and range over the rounds."""
+    synchronize): the forward + backward alone with each optimizer's
+    capture in ``grads_only``, and each step of ``variants`` ({key: (name,
+    lr, fused, impl, shard)}).  The variants run in turns, the order
+    reversed every round, and each reports its median and range over the
+    rounds."""
     from repro_torch.core.registry import capture_for
     from repro_torch.train.step import compute_grads_and_stats
 
     runs = {}
-    for name, (lr, *_) in MAIN_PATHS.items():
-        def grads_only(_, cap=capture_for(name)):
+    for name in grads_only:
+        def only(_, cap=capture_for(name)):
             for batch in batches[:per_round]:
                 compute_grads_and_stats(model, params0, batch, cap)
-        runs[f'grads_only_{name}_ms'] = grads_only
-        for fused_flag in (False, True):
-            for impl in ('auto', 'torch'):
-                *_, step, params, state = _train(
-                    torch, model, params0, batches[:3], fused=fused_flag,
-                    impl=impl, lr=lr, name=name)
-                carry = {'params': params, 'state': state}
+        runs[f'grads_only_{name}_ms'] = only
+    for key, (name, lr, fused_flag, impl, shard) in variants.items():
+        *_, step, params, state = _train(
+            torch, model, params0, batches[:3], fused=fused_flag, impl=impl,
+            lr=lr, name=name, shard=shard)
+        carry = {'params': params, 'state': state}
 
-                def run(_, step=step, carry=carry):
-                    for batch in batches[:per_round]:
-                        carry['params'], carry['state'], _m = step(
-                            carry['params'], carry['state'], batch)
-                key = f'{name}_{"fused" if fused_flag else "composed"}_' \
-                      f'{"cuda" if impl == "auto" else "torch"}_ms'
-                runs[key] = run
+        def run(_, step=step, carry=carry):
+            for batch in batches[:per_round]:
+                carry['params'], carry['state'], _m = step(
+                    carry['params'], carry['state'], batch)
+        runs[key] = run
     times = {k: [] for k in runs}
     for r in range(rounds):
         for key in (list(runs) if r % 2 == 0 else list(reversed(runs))):
@@ -753,19 +1017,39 @@ def _step_times(torch, model, params0, batches, rounds=5, per_round=10):
     return {k: _median_spread(v) for k, v in times.items()}
 
 
-def _profile(torch, model, params0, batches, steps, n=10):
-    """torch.profiler over ``n`` steps of each path: device time by kernel
-    (device-side events only, so no op is counted twice) and the device's
-    idle share of the unprofiled median step time.  Where the trace holds
+def _main_variants():
+    return {f'{name}_{"fused" if fused else "composed"}_'
+            f'{"cuda" if impl == "auto" else "torch"}_ms':
+            (name, lr, fused, impl, None)
+            for name, (lr, *_) in MAIN_PATHS.items()
+            for fused in (False, True) for impl in ('auto', 'torch')}
+
+
+def _solver_variants():
+    out = {}
+    for name, (lr, shard) in SOLVER_PATHS.items():
+        for fused in (False, True):
+            for impl in ('auto', 'torch'):
+                out[f'{name}_shard_{"fused" if fused else "composed"}_'
+                    f'{"cuda" if impl == "auto" else "torch"}_ms'] = (
+                    name, lr, fused, impl, shard)
+        out[f'{name}_dense_composed_ms'] = (name, lr, False, 'auto', None)
+    return out
+
+
+def _profile(torch, model, params0, batches, steps, variants, n):
+    """torch.profiler over ``n`` steps of each of ``variants`` ({key:
+    (name, lr, fused, impl, shard)}): device time by kernel (device-side
+    events only, so no op is counted twice) and the device's idle share of
+    the unprofiled median step time ``steps[key]``.  Where the trace holds
     no device time, says so instead of a number."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = {}
-    for (name, (lr, *_)), fused_flag in itertools.product(MAIN_PATHS.items(),
-                                                          (False, True)):
+    for key, (name, lr, fused_flag, impl, shard) in variants.items():
         *_, step, params, state = _train(torch, model, params0, batches[:3],
-                                         fused=fused_flag, impl='auto',
-                                         lr=lr, name=name)
+                                         fused=fused_flag, impl=impl,
+                                         lr=lr, name=name, shard=shard)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -779,10 +1063,9 @@ def _profile(torch, model, params0, batches, steps, n=10):
             by_kernel[evt.key] = by_kernel.get(evt.key, 0.0) + \
                 evt.self_device_time_total / n
         busy_us = sum(by_kernel.values())
-        key = f'{name}_{"fused" if fused_flag else "composed"}'
-        step_ms = steps[f'{key}_cuda_ms']['median']
+        step_ms = steps[key]['median']
         top = sorted(by_kernel.items(), key=lambda kv: -kv[1])[:10]
-        out[key] = {
+        out[key[:-len('_cuda_ms')]] = {
             'device_kernels_per_step': sum(
                 e.count for e in prof.key_averages()
                 if e.device_type == DeviceType.CUDA) / n,
@@ -809,6 +1092,9 @@ def main() -> None:
     err = kernels_phase(torch)
     model, params0, batches = ae_setup(torch)
     counts, per_step = main_phase(torch, model, params0, batches)
+    s_counts, s_per_step = solver_phase(torch, model, params0, batches)
+    counts = {k: counts[k] + s_counts[k] for k in counts}
+    per_step.update(s_per_step)
     stacked_phase(torch)
     rows = times_phase(torch, err, counts, per_step, model, params0, batches)
     print(f'total {time.perf_counter() - t0:.1f} s after device check')

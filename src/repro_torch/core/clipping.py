@@ -2,15 +2,18 @@
 PyTorch port.
 
 Counterpart of ``kl_clip_trace``, ``kl_normalize``,
-``graft_to_grad_magnitude`` and the fused tails (``finish_kl_clip``,
-``ema_finish``, ``finish_normalized_ema``, ``finish_graft_ema``) in
-``repro/core/clipping.py``.  The trust region accumulates m ← μ·m + p, clips
-the momentum-included update by ν = min(1, √(κ / (α² uᵀg))) and stores the
-clipped buffer; Eva-f rescales by 1/√(pᵀg); Eva-s grafts each leaf to the
-gradient's norm.  All scalars stay 0-d device tensors.
+``graft_to_grad_magnitude``, the fused tails (``finish_kl_clip``,
+``ema_finish``, ``finish_normalized_ema``, ``finish_graft_ema``) and the
+declarative tail of the solve-based optimizers (``Epilogue``,
+``fused_tail``) in ``repro/core/clipping.py``.  The trust region
+accumulates m ← μ·m + p, clips the momentum-included update by
+ν = min(1, √(κ / (α² uᵀg))) and stores the clipped buffer; Eva-f rescales
+by 1/√(pᵀg); Eva-s and Shampoo graft each leaf to the gradient's norm.
+All scalars stay 0-d device tensors.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Callable, Optional, Union
 
 import torch
@@ -125,3 +128,55 @@ def finish_graft_ema(p, pp, gg, trace, momentum: float, step,
         lambda u, a, b: u * torch.sqrt(b / torch.clamp(a, min=eps)),
         p, pp, gg)
     return ema_finish(scaled, trace, momentum, step)
+
+
+@dataclasses.dataclass(frozen=True)
+class Epilogue:
+    """An optimizer's update tail.  kind: 'kl_clip' (trust region +
+    heavy-ball, the K-FAC tail) | 'kl_normalize' (global rescale + EMA
+    momentum) | 'graft' (per-leaf SGD-magnitude graft + EMA momentum, the
+    Shampoo tail)."""
+    kind: str
+    kappa: float = 1e-3
+    lr: Schedule = 0.1
+    momentum: float = 0.9
+    nesterov: bool = False
+    eps: float = 1e-12
+
+
+def fused_tail(epi: Epilogue) -> GradientTransformation:
+    """One transform in place of the composed [kl_clip_trace] /
+    [kl_normalize + ema_trace] / [graft + ema_trace] tails: the same math
+    through the ``finish_*`` helpers, one f32 ``TraceState``."""
+    if epi.kind not in ('kl_clip', 'kl_normalize', 'graft'):
+        raise ValueError(f'unknown epilogue kind {epi.kind!r}')
+
+    def init(params, extras=None):
+        return TraceState(trace=tree_map(
+            lambda p: torch.zeros(p.shape, dtype=F32, device=p.device),
+            params))
+
+    def update(updates, state, params=None, extras: Optional[Extras] = None):
+        del params
+        p32 = tree_map(lambda u: u.to(F32), updates)
+        if epi.kind == 'kl_clip':
+            m = tree_map(lambda mm, g: epi.momentum * mm + g, state.trace,
+                         p32)
+            u = tree_map(lambda g, mm: g + epi.momentum * mm, p32, m) \
+                if epi.nesterov else m
+            out, stored = finish_kl_clip(
+                u, tree_vdot(u, extras.raw_grads), extras.step, epi.kappa,
+                epi.lr, m=m if epi.nesterov else None)
+        elif epi.kind == 'kl_normalize':
+            out, stored = finish_normalized_ema(
+                p32, tree_vdot(p32, extras.raw_grads), state.trace,
+                epi.momentum, extras.step, epi.eps)
+        else:
+            pp = tree_map(lambda u: (u * u).sum(), p32)
+            gg = tree_map(lambda g: (g.to(F32) * g.to(F32)).sum(),
+                          extras.raw_grads)
+            out, stored = finish_graft_ema(p32, pp, gg, state.trace,
+                                           epi.momentum, extras.step, epi.eps)
+        return out, TraceState(trace=stored)
+
+    return GradientTransformation(init, update)

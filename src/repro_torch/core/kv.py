@@ -1,15 +1,19 @@
-"""Kronecker-vector capture: forward statistics and zero taps — PyTorch port.
+"""Kronecker-vector and Kronecker-factor capture: forward statistics and
+zero taps — PyTorch port.
 
-Counterpart of ``repro/core/kv.py``, for the vector statistics of Eva (ā and
-b̄) and Eva-f (ā only, no taps).
+Counterpart of ``repro/core/kv.py``: the vector statistics of Eva (ā and
+b̄) and Eva-f (ā only, no taps), and K-FAC's factors.
 
 * **forward stats**: every preconditioned linear records the mean of its
-  input, ā = (1/n) Σ a_t, as an auxiliary output of the model's apply.
-* **taps**: the layer computes ``z = x @ W + b + t`` with ``t`` a zero
-  ``(d_out,)`` tensor that requires grad.  ``∂loss/∂t = Σ_t ∂loss/∂z_t``, the
-  batch-summed pre-activation gradient: with the mean-loss convention this is
-  the paper's b̄ = Σ_t z̃_t (z̃ = cotangent of the mean loss).  The tap rides
-  in autograd's own backward; no backward hooks.
+  input, ā = (1/n) Σ a_t, and for K-FAC the factor A = (1/n) Σ a_t a_tᵀ, as
+  auxiliary outputs of the model's apply.
+* **taps**: the layer computes ``z = x @ W + b + t`` with ``t`` a zero tensor
+  that requires grad.  For a vector tap ``(d_out,)``, ``∂loss/∂t =
+  Σ_t ∂loss/∂z_t``, the batch-summed pre-activation gradient: with the
+  mean-loss convention this is the paper's b̄ = Σ_t z̃_t (z̃ = cotangent of
+  the mean loss).  For K-FAC a full tap ``(tokens, d_out)`` keeps the
+  per-token cotangent z̃_t, and B = n Σ_t z̃_t z̃_tᵀ.  The tap rides in
+  autograd's own backward; no backward hooks.
 """
 from __future__ import annotations
 
@@ -27,9 +31,9 @@ F32 = torch.float32
 class CaptureConfig:
     """What statistics the optimizer wants per preconditioned layer.
 
-    a: None | 'mean' — input-activation side (forward).
-    b: None | 'mean' — pre-activation-gradient side, vector taps (d_out,).
-    The reference's 'outer' (K-FAC) capture is not ported yet.
+    a: None | 'mean' | 'outer' — input-activation side (forward).
+    b: None | 'mean' | 'outer' — pre-activation-gradient side:
+        'mean' -> vector taps (d_out,); 'outer' -> full taps (tokens, d_out).
     """
 
     a: Optional[str] = None
@@ -37,9 +41,9 @@ class CaptureConfig:
 
     def __post_init__(self):
         for side in (self.a, self.b):
-            if side not in (None, 'mean'):
-                raise ValueError(f"capture {side!r} is not ported; "
-                                 "have None and 'mean'")
+            if side not in (None, 'mean', 'outer'):
+                raise ValueError(f"capture {side!r} is not known; have "
+                                 "None, 'mean' and 'outer'")
 
     @property
     def needs_taps(self) -> bool:
@@ -53,15 +57,18 @@ class CaptureConfig:
 NO_CAPTURE = CaptureConfig(None, None)
 EVA_CAPTURE = CaptureConfig('mean', 'mean')
 EVA_F_CAPTURE = CaptureConfig('mean', None)
+FOOF_CAPTURE = CaptureConfig('outer', None)
+KFAC_CAPTURE = CaptureConfig('outer', 'outer')
 
 
 class LayerStats(NamedTuple):
     """Per-layer captured statistics; any field may be None.  ``count`` is
-    the number of tokens that contributed.  The reference's ``a_outer`` /
-    ``b_outer`` (K-FAC factors) are not ported."""
+    the number of tokens that contributed."""
 
     a_mean: Any = None   # (..., d_in)
     b_mean: Any = None   # (..., d_out)
+    a_outer: Any = None  # (..., d_in, d_in)
+    b_outer: Any = None  # (..., d_out, d_out)
     count: Any = None
 
 
@@ -70,13 +77,17 @@ class LayerStats(NamedTuple):
 
 
 def fwd_stats(x: torch.Tensor, capture: Optional[CaptureConfig]) -> LayerStats:
-    """Input mean of a linear layer's input ``x (..., d_in)``, in f32."""
+    """Input statistics of a linear layer's input ``x (..., d_in)``, in f32:
+    the mean ā and, for ``a='outer'``, the factor A = (1/n) Σ a_t a_tᵀ."""
     if capture is None or capture.a is None:
         return LayerStats()
-    xt = x.detach().reshape(-1, x.shape[-1])
+    xt = x.detach().reshape(-1, x.shape[-1]).to(F32)
     n = xt.shape[0]
-    a_mean = xt.to(F32).sum(0) / n
-    return LayerStats(a_mean=a_mean, count=scalar(float(n), x.device))
+    a_mean = xt.sum(0) / n
+    count = scalar(float(n), x.device)
+    if capture.a == 'outer':
+        return LayerStats(a_mean=a_mean, a_outer=xt.T @ xt / n, count=count)
+    return LayerStats(a_mean=a_mean, count=count)
 
 
 # ---------------------------------------------------------------------------
@@ -94,6 +105,25 @@ def make_vector_taps(params: dict, precon_paths) -> dict[str, torch.Tensor]:
     flat = flatten_params(params)
     return {path: torch.zeros(vector_tap_shape(flat[path].shape), dtype=F32,
                               device=flat[path].device)
+            for path in sorted(precon_paths)}
+
+
+def full_tap_shape(w_shape, token_shape) -> tuple[int, ...]:
+    """Full (z-shaped) tap for a weight (lead..., d_in, d_out):
+    (lead..., *token_shape, d_out)."""
+    return tuple(w_shape[:-2]) + tuple(token_shape) + (w_shape[-1],)
+
+
+def make_full_taps(params: dict, precon_paths,
+                   token_shape: tuple[int, ...]) -> dict[str, torch.Tensor]:
+    """Zero full taps (K-FAC's ``b='outer'`` capture) for every
+    preconditioned weight path; ``token_shape`` is the token layout of the
+    layer outputs, e.g. ``(batch,)`` for the MLPs.  A full tap keeps the
+    per-token cotangent so that B can be formed: that memory is K-FAC's own
+    cost."""
+    flat = flatten_params(params)
+    return {path: torch.zeros(full_tap_shape(flat[path].shape, token_shape),
+                              dtype=F32, device=flat[path].device)
             for path in sorted(precon_paths)}
 
 
@@ -126,15 +156,33 @@ def unflatten_params(flat: dict[str, Any]) -> dict:
 
 def finalize_stats(forward: dict[str, LayerStats],
                    tap_grads: Optional[dict[str, torch.Tensor]],
-                   capture: CaptureConfig) -> dict[str, LayerStats]:
-    """Merge forward stats with the tap gradients: for vector taps the
-    gradient *is* b̄."""
+                   capture: CaptureConfig,
+                   n_tokens=None) -> dict[str, LayerStats]:
+    """Merge forward stats with the tap gradients.  For vector taps the
+    gradient *is* b̄.  For full taps it is the per-token cotangent z̃
+    (lead..., tokens..., d_out): B = n Σ_t z̃_t z̃_tᵀ over the token axes only
+    (n = ``n_tokens``, else the token count) and b̄ = Σ_t z̃_t."""
     out = {}
     for path, st in forward.items():
-        b_mean = None
-        if tap_grads is not None and path in tap_grads and capture.b == 'mean':
-            b_mean = tap_grads[path].to(F32)
-        out[path] = st._replace(b_mean=b_mean)
+        b_mean = b_outer = None
+        if tap_grads is not None and path in tap_grads:
+            tg = tap_grads[path]
+            if capture.b == 'mean':
+                b_mean = tg.to(F32)
+            elif capture.b == 'outer':
+                # the leading stack dims survive; their count comes from the
+                # forward stats of the same layer, as in the reference
+                nlead = 0
+                if st.a_outer is not None:
+                    nlead = st.a_outer.dim() - 2
+                elif st.a_mean is not None:
+                    nlead = st.a_mean.dim() - 1
+                zt = tg.reshape(tuple(tg.shape[:nlead]) + (-1, tg.shape[-1]))
+                zt = zt.to(F32)
+                n = n_tokens if n_tokens is not None else zt.shape[-2]
+                b_outer = n * (zt.transpose(-1, -2) @ zt)
+                b_mean = zt.sum(-2)
+        out[path] = st._replace(b_mean=b_mean, b_outer=b_outer)
     return out
 
 

@@ -1,11 +1,14 @@
-"""Sherman–Morrison rank-one preconditioning (Eq. 13, 21, 23) — PyTorch port.
+"""Sherman–Morrison rank-one preconditioning (Eq. 13, 21, 23) and the
+explicit-inverse baselines (K-FAC Eq. 5, Shampoo Eq. 8) — PyTorch port.
 
-Counterpart of the rank-one branches (``eva``, ``eva_f``, ``eva_s``) of
-``repro/core/precondition.py``: weights are (..., d_in, d_out) and every
-formula broadcasts over leading stack dims.
-``impl`` ('auto' | 'cuda' | 'torch', see ``kernels/dispatch.py``) picks the
-Hopper kernels or their plain versions; the reference's ``impl=None``
-inline path is the port's ``'torch'`` impl.
+Counterpart of ``repro/core/precondition.py`` for the methods ``eva``,
+``eva_f``, ``eva_s``, ``kfac``, ``shampoo``, ``kfac_cached`` and
+``shampoo_cached``: weights are (..., d_in, d_out) and every formula
+broadcasts over leading stack dims.  ``impl`` ('auto' | 'cuda' | 'torch',
+see ``kernels/dispatch.py``) picks the Hopper kernels or their plain
+versions for the rank-one methods; the reference's ``impl=None`` inline
+path is the port's ``'torch'`` impl.  The explicit-inverse methods are
+plain PyTorch (``torch.linalg``) in f32.
 """
 from __future__ import annotations
 
@@ -18,7 +21,14 @@ from repro_torch.core.transform import tree_map
 from repro_torch.kernels import ops as kops
 
 F32 = torch.float32
-PORTED_METHODS = ('eva', 'eva_f', 'eva_s')
+RANK_ONE = ('eva', 'eva_f', 'eva_s')
+PORTED_METHODS = RANK_ONE + ('kfac', 'shampoo', 'kfac_cached',
+                             'shampoo_cached')
+
+
+def _f32(x):
+    """Promote low-precision values to f32 for the math (f64 stays f64)."""
+    return x.to(torch.promote_types(x.dtype, F32))
 
 
 def eva_precondition(g, a, b, gamma: float, impl: str = 'auto'):
@@ -34,19 +44,105 @@ def grad_kvs(g):
     return g32.mean(-1), g32.mean(-2)
 
 
-def _precondition(method, g, st, gamma, impl):
+# ---------------------------------------------------------------------------
+# Explicit-inverse baselines (K-FAC Eq. 5, Shampoo Eq. 8)
+
+
+def _damped_solve(m, rhs, gamma):
+    """(M + γI)^{-1} rhs for PSD M (..., d, d); batched over leading dims."""
+    eye = torch.eye(m.shape[-1], dtype=m.dtype, device=m.device)
+    gam = torch.as_tensor(gamma, dtype=m.dtype, device=m.device)[..., None,
+                                                                  None]
+    return torch.linalg.solve(m + gam * eye, rhs)
+
+
+def _damped_inv(m, gamma):
+    """(M + γI)^{-1} in f32 through ``torch.linalg.inv``; ``gamma``
+    broadcasts over the leading dims."""
+    eye = torch.eye(m.shape[-1], dtype=F32, device=m.device)
+    gam = torch.as_tensor(gamma, dtype=F32, device=m.device)[..., None, None]
+    return torch.linalg.inv(m.to(F32) + gam * eye)
+
+
+def kfac_pi_damping(a_outer, b_outer, gamma: float):
+    """Martens–Grosse π-scaled split damping: (γ_R, γ_Q) = (π√γ, √γ/π)."""
+    tr_a = torch.diagonal(a_outer, dim1=-2, dim2=-1).sum(-1) \
+        / a_outer.shape[-1]
+    tr_b = torch.diagonal(b_outer, dim1=-2, dim2=-1).sum(-1) \
+        / b_outer.shape[-1]
+    pi = torch.sqrt(torch.clamp(tr_a, min=1e-12) /
+                    torch.clamp(tr_b, min=1e-12))
+    root = torch.sqrt(torch.as_tensor(gamma, dtype=F32,
+                                      device=a_outer.device))
+    return pi * root, root / pi
+
+
+def kfac_precondition(g, a_outer, b_outer, gamma: float):
+    """(R + γ_R I)^{-1} G (Q + γ_Q I)^{-1} in the (d_in, d_out) layout."""
+    g32 = _f32(g)
+    gamma_r, gamma_q = kfac_pi_damping(a_outer, b_outer, gamma)
+    left = _damped_solve(_f32(a_outer), g32, gamma_r)
+    # X (Q + γI)^{-1} = solve((Q + γI)ᵀ, Xᵀ)ᵀ with Q symmetric
+    right = _damped_solve(_f32(b_outer), left.transpose(-1, -2), gamma_q)
+    return right.transpose(-1, -2).to(g.dtype)
+
+
+def _inv_proot_psd(m, gamma, power: float):
+    """(M + γI)^{-power} for PSD M through ``torch.linalg.eigh``, batched;
+    the eigenvalues are clamped at 0 before the damping is added."""
+    w, v = torch.linalg.eigh(_f32(m))
+    w = torch.clamp(w, min=0.0) + gamma
+    return (v * w.pow(-power)[..., None, :]) @ v.transpose(-1, -2)
+
+
+def shampoo_precondition(g, m_in, m_out, gamma: float):
+    """G ×_in (M_in + γI)^{-1/4} ×_out (M_out + γI)^{-1/4} (k=2 modes)."""
+    p_in = _inv_proot_psd(m_in, gamma, 0.25)
+    p_out = _inv_proot_psd(m_out, gamma, 0.25)
+    return apply_two_sided(g, p_in, p_out)
+
+
+def apply_left(g, op_in):
+    """op_in @ G — a cached input-side operator, batched."""
+    return (op_in @ _f32(g)).to(g.dtype)
+
+
+def apply_two_sided(g, op_in, op_out):
+    """op_in @ G @ op_out — the cached two-sided operators, batched."""
+    return ((op_in @ _f32(g)) @ op_out).to(g.dtype)
+
+
+def _per_item(fn, *args):
+    """``fn`` on each row of a stack, in order, stacked again: the
+    reference's ``lax.map`` over a bucket, where a batched LAPACK call
+    could change an item's rounding."""
+    return torch.stack([fn(*(x[i] for x in args))
+                        for i in range(args[0].shape[0])])
+
+
+def _precondition(method, g, st, gamma, impl, stacked=False):
     """One bucket stack or leaf.  Eva-f is Eq. 21, P = (G − ā (āᵀG)/(γ +
     ‖ā‖²))/γ; Eva-s has Eva's rank-one form, with the gradient's own
-    (v_in, v_out) in the a_mean / b_mean slots."""
+    (v_in, v_out) in the a_mean / b_mean slots.  K-FAC and Shampoo read
+    their factors (or, ``*_cached``, the cached operators) from a_outer /
+    b_outer."""
     if method == 'eva_f':
         return kops.eva_f_precondition(g, st.a_mean, gamma, impl=impl)
-    return eva_precondition(g, st.a_mean, st.b_mean, gamma, impl=impl)
+    if method in ('eva', 'eva_s'):
+        return eva_precondition(g, st.a_mean, st.b_mean, gamma, impl=impl)
+    if method in ('kfac_cached', 'shampoo_cached'):
+        return apply_two_sided(g, st.a_outer, st.b_outer)
+    fn = kfac_precondition if method == 'kfac' else shampoo_precondition
+    if stacked:
+        return _per_item(lambda *t: fn(*t, gamma), g, st.a_outer,
+                         st.b_outer)
+    return fn(g, st.a_outer, st.b_outer, gamma)
 
 
-def _check_method(method: str) -> None:
-    if method not in PORTED_METHODS:
-        raise ValueError(f'method {method!r} is not ported; have '
-                         f'{PORTED_METHODS}')
+def _check_method(method: str, ported=PORTED_METHODS) -> None:
+    if method not in ported:
+        raise ValueError(f'method {method!r} is not ported here; have '
+                         f'{ported}')
 
 
 def _plan_for(updates, aux, plan, who):
@@ -86,7 +182,7 @@ def precondition_tree(updates: dict, aux: dict, method: str, gamma: float, *,
             else bucketing.gather_tree(sub, aux)
         g_b = bucketing.gather(sub, {p: updates[p] for p in sub.paths})
         out_b = {b.key: _precondition(method, g_b[b.key], aux_b[b.key],
-                                      gamma, impl)
+                                      gamma, impl, stacked=True)
                  for b in big}
         out.update(bucketing.scatter(sub, out_b))
     for b in plan.buckets:
@@ -107,7 +203,7 @@ def precondition_tree_fused(updates: dict, aux: dict, method: str,
                             impl: str = 'auto'):
     """Fused precondition → update epilogue over a flat gradient tree: one
     ``eva_fused`` (``eva_f_fused`` for Eva-f) call per stacked bucket or per
-    path of a small bucket.
+    path of a small bucket; rank-one methods only.
 
     trace: flat ``{path: f32 momentum buffer}`` (missing paths get zeros),
     read only when ``fold_momentum``: without the fold no buffer is made.
@@ -116,7 +212,7 @@ def precondition_tree_fused(updates: dict, aux: dict, method: str,
     = [⟨out,g⟩, ⟨out,out⟩, ⟨g,g⟩], g the incoming updates.  Paths outside
     the plan get the same epilogue in plain PyTorch.
     """
-    _check_method(method)
+    _check_method(method, RANK_ONE)
     plan = _plan_for(updates, aux, plan, 'precondition_tree_fused')
     aux_is_bucketed = bucketing.is_bucketed(plan, aux)
     trace = trace or {}

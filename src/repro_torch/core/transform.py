@@ -27,7 +27,9 @@ class Extras:
     raw_grads: the gradients before any transform; stats: captured KV
     statistics ({path: kv.LayerStats}); loss; step (filled in by ``chain``);
     plan: the ``bucketing.BucketPlan`` built at ``init_opt_state`` time;
-    sched: the ``schedule.runtime.RefreshRuntime``.
+    sched: the ``schedule.runtime.RefreshRuntime``; factor: the
+    ``core.factor_sharded.FactorShardConfig`` (or its kwargs) — what to do
+    with oversized Kronecker factors; None keeps every factor dense.
     """
 
     raw_grads: Any = None
@@ -36,6 +38,7 @@ class Extras:
     step: Any = None
     plan: Any = None
     sched: Any = None
+    factor: Any = None
 
 
 class GradientTransformation(NamedTuple):

@@ -1,7 +1,8 @@
-// Shared device code of the port's Eva kernels (bilinear.cu, rank1_update.cu,
-// eva_fused.cu, matvec.cu, eva_f_fused.cu).
+// Shared device code of the port's kernels.  matvec_cols.cu takes only the
+// type helpers (to_f32); the Eva kernels (bilinear.cu, rank1_update.cu,
+// eva_fused.cu, matvec.cu, eva_f_fused.cu) share the rest.
 //
-// Work partition.  Every kernel cuts each stack item's flattened G
+// Work partition of the Eva kernels.  Each cuts each stack item's flattened G
 // (d_in * d_out elements, row-major) into contiguous chunks of kChunk
 // elements and gives one block of kThreads threads to each (chunk, item)
 // pair: grid = (chunks, L).  Thread t of a block visits the chunk's elements

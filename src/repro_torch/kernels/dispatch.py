@@ -53,6 +53,20 @@ def matvec_and_norm_stacked(g, a, impl: str = 'auto'):
     return _mv.matvec_and_norm_stacked(g, a)
 
 
+def matvec_cols(g, a, impl: str = 'auto'):
+    """Band partial A G for a row band g (m, n) and a (R, m): (R, n) f32."""
+    if resolve(impl, g) == 'torch':
+        return ref.matvec_cols_ref(g, a)
+    return _mv.matvec_cols(g, a)
+
+
+def matvec_cols_stacked(g, a, impl: str = 'auto'):
+    """The same for L bands g (L, m, n) and a (L, R, m): (L, R, n) f32."""
+    if resolve(impl, g) == 'torch':
+        return ref.matvec_cols_ref(g, a)
+    return _mv.matvec_cols_stacked(g, a)
+
+
 def bilinear_and_norms(g, a, b, impl: str = 'auto'):
     """(aᵀ G b, [‖a‖², ‖b‖²]) for g (d_in, d_out): () and (2,) f32."""
     if resolve(impl, g) == 'torch':

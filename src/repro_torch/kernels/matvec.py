@@ -1,12 +1,17 @@
-"""Vector-matrix product u = aᵀ G (Eq. 21): wrapper of ``csrc/matvec.cu``.
+"""Vector-matrix products: wrappers of ``csrc/matvec.cu`` and
+``csrc/matvec_cols.cu``.
 
-Counterpart of ``repro/kernels/matvec.py::matvec`` and ``::matvec_stacked``.
-``matvec_and_norm_stacked`` takes g (L, d_in, d_out) f32|bf16 and a (L, d_in)
-f32 and returns u (L, d_out) f32 and ‖a‖² (L,) f32, both summed on the card
-in a fixed order; the unstacked forms run one matrix as a stack of one.  The
-wrappers take CUDA tensors only and raise on any other (``dispatch.py`` routes
-CPU tensors to the plain versions in ``ref.py``).  Outputs and scratch come
-from ``torch.empty`` on the input's device; nothing synchronises.
+Counterpart of ``repro/kernels/matvec.py``.  ``matvec_and_norm_stacked``
+(``::matvec``, ``::matvec_stacked``) takes g (L, d_in, d_out) f32|bf16 and
+a (L, d_in) f32 and returns u (L, d_out) f32 and ‖a‖² (L,) f32, both summed
+on the card in a fixed order.  ``matvec_cols_stacked`` (``::matvec_cols``,
+``::matvec_cols_stacked``) takes a row band g (L, m, n) f32|bf16 of L
+symmetric factors and a (L, R, m) f32 and returns the band partials
+A·G (L, R, n) f32 of the factor-sharded solve.  The unstacked forms run one
+matrix as a stack of one.  The wrappers take CUDA tensors only and raise on
+any other (``dispatch.py`` routes CPU tensors to the plain versions in
+``ref.py``).  Outputs and scratch come from ``torch.empty`` on the input's
+device; nothing synchronises.
 """
 from __future__ import annotations
 
@@ -21,6 +26,12 @@ _SIGNATURES = {
                               build.I64, build.I64, build.P],
     'repro_matvec_finish': [build.P, build.P, build.P, build.P, build.I64,
                             build.I64, build.I64, build.I64, build.P],
+}
+
+
+_COLS_SIGNATURES = {
+    'repro_matvec_cols': [build.P, build.I32, build.P, build.P, build.I64,
+                          build.I64, build.I64, build.I64, build.P],
 }
 
 
@@ -68,3 +79,29 @@ def matvec_and_norm(g, a):
     """Unstacked form: g (d_in, d_out) -> u (d_out,) f32, asq () f32."""
     u, asq = matvec_and_norm_stacked(g[None], a[None])
     return u[0], asq[0]
+
+
+def matvec_cols_stacked(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+    """Stacked band partials U_l = A_l G_l: g (L, m, n) f32|bf16, a (L, R, m)
+    f32 -> (L, R, n) f32, from one launch.  Each output is one f32
+    multiply-add chain over the band rows in order, so an item gives the
+    same bits alone or in a stack."""
+    check_operands(g, a, widths=((a.shape[1], g.shape[1]),))
+    L, m, n = g.shape
+    R = a.shape[1]
+    if R < 1:
+        raise ValueError('a must hold at least one vector')
+    lib = build.library('matvec_cols', _COLS_SIGNATURES)
+    u = torch.empty((L, R, n), dtype=torch.float32, device=g.device)
+    with torch.cuda.device(g.device):
+        stream = torch.cuda.current_stream(g.device).cuda_stream
+        build.check(lib, lib.repro_matvec_cols(
+            g.data_ptr(), int(g.dtype == torch.bfloat16), a.data_ptr(),
+            u.data_ptr(), L, R, m, n, stream), 'matvec_cols launch')
+    launches.COUNTS['matvec_cols'] += 1
+    return u
+
+
+def matvec_cols(g, a):
+    """Unstacked form: g (m, n), a (R, m) -> (R, n) f32."""
+    return matvec_cols_stacked(g[None], a[None])[0]

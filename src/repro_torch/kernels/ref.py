@@ -1,8 +1,9 @@
-"""Plain PyTorch versions of the Eva kernels — the CPU path and the oracle.
+"""Plain PyTorch versions of the port's kernels — the CPU path and the oracle.
 
 Counterpart of ``repro/kernels/ref.py``.  Layouts: g (..., d_in, d_out),
-a (..., d_in), b (..., d_out); any leading stack dims broadcast.  Every
-reduction is in f32 whatever the input dtype, as in the kernels.
+a (..., d_in), b (..., d_out) (``matvec_cols_ref``: a row band g (..., m, n)
+and a (..., R, m)); any leading stack dims broadcast.  Every reduction is
+in f32 whatever the input dtype, as in the kernels.
 ``dispatch.py`` routes here the ``'torch'`` impl and, under ``'auto'``,
 every tensor that lies on the CPU.
 """
@@ -21,6 +22,12 @@ def matvec_ref(g, a):
     """u = aᵀ G — contraction over d_in.  (..., d_in, d_out), (..., d_in)
     -> (..., d_out) f32."""
     return torch.einsum('...io,...i->...o', g.to(F32), a.to(F32))
+
+
+def matvec_cols_ref(g, a):
+    """Band partial U = A G of the factor-sharded solve: g (..., m, n) row
+    band, a (..., R, m) owned columns -> (..., R, n) f32."""
+    return torch.einsum('...mn,...rm->...rn', g.to(F32), a.to(F32))
 
 
 def matvec_and_norm_ref(g, a):

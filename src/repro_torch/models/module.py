@@ -77,6 +77,10 @@ def params_to_numpy(params: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
 def state_to_numpy(state: Any) -> dict[str, np.ndarray]:
     """Optimizer state as ``{path: array}``: NamedTuple fields by name,
     tuple entries by index, dict keys joined with '/', None dropped — the
-    same paths a like walk over the reference's state gives."""
+    same paths a like walk over the reference's state gives.  A ``HeadState``
+    side that is excluded or sharded is ``()`` in both packages and has no
+    leaf, so ``KfacState``/``ShampooState`` with sharded heads flatten to the
+    reference's leaf names (``head/buckets/<key>/inv_in``, ``.../gam_out``,
+    ``head/solve_iters``, ...)."""
     return {p: v.detach().cpu().numpy()
             for p, v in tree_leaves_with_path(state).items()}

@@ -1,5 +1,6 @@
 """The paper's 8-layer autoencoder (§5.1, Fig. 4) and an MLP classifier —
-PyTorch port of ``repro/models/simple.py``."""
+PyTorch port of ``repro/models/simple.py``.  These are the models with full
+taps (K-FAC's ``b='outer'`` capture), through ``MLP.make_taps``."""
 from __future__ import annotations
 
 from typing import Optional, Sequence
@@ -7,6 +8,7 @@ from typing import Optional, Sequence
 import torch
 
 from repro_torch.core import kv as kvlib
+from repro_torch.device import resolve_device
 from repro_torch.models.layers import linear, linear_spec
 
 
@@ -25,6 +27,21 @@ class MLP:
 
     def precon_paths(self) -> set[str]:
         return {f'fc{i}/w' for i in range(len(self.dims) - 1)}
+
+    def make_taps(self, batch_size: int, capture: kvlib.CaptureConfig,
+                  device='cuda') -> Optional[dict]:
+        """Zero vector taps (d_out,) or full taps (batch, d_out) per layer,
+        on ``device``."""
+        if not capture.needs_taps:
+            return None
+        device = resolve_device(device)
+        taps = {}
+        for i in range(len(self.dims) - 1):
+            d_out = self.dims[i + 1]
+            shape = (d_out,) if capture.b == 'mean' else (batch_size, d_out)
+            taps[f'fc{i}/w'] = torch.zeros(shape, dtype=torch.float32,
+                                           device=device)
+        return taps
 
     def apply(self, params, x, taps=None, capture=None):
         col: dict = {}

@@ -1,24 +1,34 @@
 """RefreshRuntime: the train-level refresh configuration — PyTorch port.
 
 Counterpart of ``repro/schedule/runtime.py`` for one device and the
-``'sync'`` pipeline.  The reference's worker-sharded refresh, owned-slice
-exchange and ``'onestep'`` pipeline need a mesh and are not ported.
+``'sync'`` pipeline.  :func:`sharded_refresh` keeps the reference's
+single-worker structure (``recompute_single``); the worker-sharded
+recomputation, its owned-slice exchange and the ``'onestep'`` pipeline need
+several workers and are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Any, Callable, Mapping, Optional
 
+import torch
+
+from repro_torch.core.bucketing import Bucket, BucketPlan
+from repro_torch.core.transform import tree_map
+from repro_torch.schedule import ownership
 from repro_torch.schedule import policy as policy_mod
 
 
 @dataclasses.dataclass(frozen=True)
 class RefreshRuntime:
     """policy: the default policy for optimizers built without one (their
-    ``interval`` kwarg wins when set ≠ 1).  pipeline: only ``'sync'`` —
-    statistics are applied in the step that produced them."""
+    ``interval`` kwarg wins when set ≠ 1).  shard_refresh: let the workers
+    share the refresh (:func:`sharded_refresh`); one process recomputes
+    everything either way.  pipeline: only ``'sync'`` — statistics are
+    applied in the step that produced them."""
 
     policy: Optional[policy_mod.RefreshPolicy] = None
+    shard_refresh: bool = True
     pipeline: str = 'sync'
 
     def __post_init__(self):
@@ -52,3 +62,35 @@ def resolve_pipe(rt: RefreshRuntime, state_pipe):
         raise ValueError("pipeline='sync' but the optimizer state carries "
                          'pipeline buffers')
     return None
+
+
+def sharded_refresh(plan: BucketPlan, refresh: torch.Tensor,
+                    item_fn: Callable[[Bucket, Any], Any],
+                    args_b: Mapping[str, Any], old_b: Mapping[str, Any], *,
+                    cost: Callable[[Bucket], float],
+                    shard: bool = True) -> dict:
+    """Recompute cached per-bucket values under a refresh decision.
+
+    ``item_fn(bucket, row)`` recomputes one stack row of ``args_b[key]``
+    (e.g. a damped-inverse pair); the rows are recomputed one at a time in
+    stack order, as the reference's ``lax.map``, and stacked again.
+    ``refresh`` is a 0-d device bool: the result is ``torch.where(refresh,
+    fresh, old)`` leaf by leaf, so no step waits on the card — where the
+    reference's ``lax.cond`` skips the recomputation on a step that keeps
+    the old values, this computes it and throws it away.  ``cost`` weighs
+    an item for the owner assignment of the multi-worker form and is unused
+    by one worker.  Returns ``{bucket_key: values}`` shaped as ``old_b``.
+    """
+    del cost
+    if shard:
+        ownership.world_and_rank()   # raises for several workers
+    out = {}
+    for b in plan.buckets:
+        args = args_b[b.key]
+        n = len(b.paths)
+        rows = [item_fn(b, tree_map(lambda x, i=i: x[i], args))
+                for i in range(n)]
+        fresh = tree_map(lambda *xs: torch.stack(xs), *rows)
+        out[b.key] = tree_map(lambda f, o: torch.where(refresh, f, o), fresh,
+                              old_b[b.key])
+    return out

@@ -11,11 +11,13 @@ raise unless the caller passes ``device='cpu'``.
 """
 from __future__ import annotations
 
-from typing import Callable, Optional
+import inspect
+from typing import Any, Callable, Optional
 
 import torch
 
 from repro_torch.core import bucketing
+from repro_torch.core import factor_sharded as fsh
 from repro_torch.core import kv as kvlib
 from repro_torch.core.transform import (Extras, GradientTransformation,
                                         apply_updates, tree_map)
@@ -34,13 +36,37 @@ def _plan_for_stats(params_or_grads, stats
     return bucketing.build_plan({p: flat[p] for p in stats if p in flat})
 
 
-def _taps(model, params, capture: kvlib.CaptureConfig):
-    """Zero (d_out,) vector taps for every preconditioned path.  The
-    reference takes a ``taps_fn`` for its K-FAC capture, whose taps are
-    batch-shaped; with vector taps only, the shapes follow from the
-    weights."""
+def taps_caller(taps_fn: Optional[Callable]) -> Callable:
+    """Normalize a taps factory to ``(params, batch) -> taps``: a
+    ``taps_fn(params, batch)`` (two or more parameters) sizes the taps from
+    the batch it is handed; a one-parameter ``taps_fn(params)`` closes over
+    its batch size.  None gives ``None`` (the default taps)."""
+    if taps_fn is None:
+        return lambda params, batch: None
+    try:
+        n_args = len(inspect.signature(taps_fn).parameters)
+    except (TypeError, ValueError):
+        n_args = 1
+    if n_args >= 2:
+        return taps_fn
+    return lambda params, batch: taps_fn(params)
+
+
+def _default_taps(model, params, batch, capture: kvlib.CaptureConfig):
+    """The taps when the caller gives no ``taps_fn``.  A model with
+    ``make_taps`` (the simple MLPs) gets them sized from the batch it is
+    handed, where the reference raises and asks for a ``taps_fn``; any
+    other model gets (d_out,) vector taps, and a full-tap capture
+    (``b='outer'``) without a ``taps_fn`` raises, as in the reference."""
     if not capture.needs_taps:
         return None
+    dev = next(iter(params.values())).device
+    if hasattr(model, 'make_taps'):
+        rows = next(iter(batch.values())).shape[0]
+        return model.make_taps(rows, capture, device=dev)
+    if capture.b == 'outer':
+        raise ValueError("capture.b='outer' needs full z-shaped taps: pass "
+                         'taps_fn (see kv.make_full_taps)')
     return kvlib.make_vector_taps(params, set(model.precon_paths()) &
                                   set(params))
 
@@ -50,15 +76,18 @@ def _to_device(batch: dict, device: torch.device) -> dict:
 
 
 def compute_grads_and_stats(model, params: dict, batch: dict,
-                            capture: kvlib.CaptureConfig):
+                            capture: kvlib.CaptureConfig,
+                            taps: Optional[dict] = None):
     """(loss, grads, stats): one forward and backward of ``model.loss_fn``.
 
-    b̄ is the gradient of each zero tap, taken by the same backward pass as
-    the weight gradients."""
+    b̄ (or, with full taps, the per-token cotangent behind B) is the
+    gradient of each zero tap, taken by the same backward pass as the
+    weight gradients.  ``taps`` overrides the default taps."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-    taps = _taps(model, params, capture)
+    if taps is None:
+        taps = _default_taps(model, params, batch, capture)
     if taps is not None:
-        taps = {k: t.requires_grad_(True) for k, t in taps.items()}
+        taps = {k: t.detach().requires_grad_(True) for k, t in taps.items()}
     loss, aux = model.loss_fn(leaves, taps, batch, capture)
     inputs = list(leaves.values()) + (list(taps.values()) if taps else [])
     got = torch.autograd.grad(loss, inputs)
@@ -66,7 +95,8 @@ def compute_grads_and_stats(model, params: dict, batch: dict,
     tap_grads = dict(zip(taps, got[len(leaves):])) if taps else None
     stats = None
     if capture.active:
-        stats = kvlib.finalize_stats(aux['stats'], tap_grads, capture)
+        stats = kvlib.finalize_stats(aux['stats'], tap_grads, capture,
+                                     n_tokens=aux['n_tokens'])
     return loss.detach(), grads, stats
 
 
@@ -76,22 +106,31 @@ def _sum_tree(acc, tree):
 
 def make_train_step(model, opt: GradientTransformation,
                     capture: kvlib.CaptureConfig,
+                    taps_fn: Optional[Callable] = None,
                     microbatches: int = 1,
                     sched: Optional[schedrt.RefreshRuntime] = None,
+                    factor: Optional[Any] = None,
                     device='cuda') -> Callable:
     """Build ``train_step(params, opt_state, batch) -> (params, state,
     metrics)``.
 
-    ``microbatches > 1`` splits the batch on dim 0 and accumulates: grads
-    summed in f32, KV stats summed, both (and the loss) divided by the
-    count, as the reference's scan.  ``sched`` is the refresh runtime
-    threaded through ``Extras``.
+    ``taps_fn(params)`` or ``taps_fn(params, batch)`` makes the taps (see
+    :func:`taps_caller`; full taps for K-FAC).  ``microbatches > 1`` splits
+    the batch on dim 0 and accumulates: grads summed in f32, KV stats
+    summed, both (and the loss) divided by the count, as the reference's
+    scan.  ``sched`` is the refresh runtime and ``factor`` the
+    ``core.factor_sharded.FactorShardConfig``, both threaded through
+    ``Extras``; None keeps every factor dense.  The metrics hold the loss,
+    the gradient norm and, when a factor is sharded,
+    ``factor_sharded.step_metrics``.
     """
     dev = resolve_device(device)
     sched = sched if sched is not None else schedrt.RefreshRuntime()
+    make_taps = taps_caller(taps_fn)
 
     def grads_of(params, batch):
-        return compute_grads_and_stats(model, params, batch, capture)
+        return compute_grads_and_stats(model, params, batch, capture,
+                                       make_taps(params, batch))
 
     def train_step(params, opt_state, batch):
         batch = _to_device(batch, dev)
@@ -118,28 +157,35 @@ def make_train_step(model, opt: GradientTransformation,
         updates, new_state = opt.update(
             grads, opt_state, params=params,
             extras=Extras(stats=stats, loss=loss,
-                          plan=_plan_for_stats(grads, stats), sched=sched))
+                          plan=_plan_for_stats(grads, stats), sched=sched,
+                          factor=factor))
         new_params = apply_updates(params, updates)
         grad_norm = torch.sqrt(sum((g.to(F32) ** 2).sum()
                                    for _, g in sorted(grads.items())))
-        return new_params, new_state, {'loss': loss, 'grad_norm': grad_norm}
+        metrics = {'loss': loss, 'grad_norm': grad_norm}
+        metrics.update(fsh.step_metrics(new_state))
+        return new_params, new_state, metrics
 
     return train_step
 
 
 def init_opt_state(model, opt: GradientTransformation,
                    capture: kvlib.CaptureConfig, params: dict, batch: dict,
+                   taps_fn: Optional[Callable] = None,
                    sched: Optional[schedrt.RefreshRuntime] = None,
+                   factor: Optional[Any] = None,
                    device='cuda'):
     """Materialized optimizer state.  The stats' shapes come from one
-    forward/backward pass on ``batch``; the state holds zeros of them."""
+    forward/backward pass on ``batch``; the state holds zeros of them.
+    ``taps_fn``, ``sched`` and ``factor`` must be the train step's."""
     dev = resolve_device(device)
     sched = sched if sched is not None else schedrt.RefreshRuntime()
     if not capture.active:
-        return opt.init(params, Extras(sched=sched))
-    _, _, stats = compute_grads_and_stats(model, params,
-                                          _to_device(batch, dev), capture)
+        return opt.init(params, Extras(sched=sched, factor=factor))
+    batch = _to_device(batch, dev)
+    _, _, stats = compute_grads_and_stats(
+        model, params, batch, capture, taps_caller(taps_fn)(params, batch))
     zero_stats = tree_map(torch.zeros_like, stats)
     return opt.init(params, Extras(stats=zero_stats,
                                    plan=_plan_for_stats(params, zero_stats),
-                                   sched=sched))
+                                   sched=sched, factor=factor))

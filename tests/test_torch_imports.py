@@ -31,7 +31,8 @@ def test_no_jax_or_reference_import(path):
 
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
-    assert {'eva.py', 'step.py', 'dispatch.py', 'chip_smoke.py'} <= names
+    assert {'eva.py', 'step.py', 'dispatch.py', 'chip_smoke.py', 'kfac.py',
+            'shampoo.py', 'factor_sharded.py'} <= names
 
 
 def _no_card():

@@ -137,7 +137,7 @@ def test_precondition_tree_fused_matches(fold):
 def test_precondition_rejects_unported_method():
     _, _, tg, tst = _tree()
     with pytest.raises(ValueError, match='not ported'):
-        pre.precondition_tree(tg, tst, 'kfac', GAMMA)
+        pre.precondition_tree(tg, tst, 'foof', GAMMA)
 
 
 def _both_models(dims):
