@@ -15,10 +15,14 @@ Phases; any failure stops the run with a non-zero exit:
               autoencoder's layer shapes, two stacks and two ragged shapes,
               f32 and bf16; stacked against per-item bit for bit; each fused
               kernel with ``fold_momentum=False`` against its composed
-              kernels.  matvec_cols on the reference test's band shapes and
-              the autoencoder's 784 x 1000 x 1000, f32 and bf16: against its
-              plain version, its W=2 and W=4 band partials summed against
-              the float64 product, stacked against per item bit for bit.
+              kernels.  rank1_update bit for bit, from the (L, 2) pairs and
+              from two coefficient tensors alike, also on a G one element
+              past a 16-byte boundary.  matvec_cols on the reference test's
+              band shapes, the autoencoder's 784 and 500 x 1000 x 1000 and a
+              37 x 129 x 131 stack aligned in neither operand, f32 and bf16:
+              against its plain version, its W=2 and W=4 band partials
+              summed against the float64 product, stacked against per item
+              bit for bit.
 4. main     — the paper's full-width autoencoder
               (784-1000-500-250-30-250-500-1000-784, batch 1000) trained by
               Eva, Eva-f and Eva-s, 20 steps composed and 20 fused each,
@@ -41,9 +45,11 @@ Phases; any failure stops the run with a non-zero exit:
               one stacked bucket.
 6. times    — CUDA-event times of each kernel, its plain version and the
               one-call library equivalent at the autoencoder's shapes, eager
-              and replayed from a CUDA graph; the step times of each
-              optimizer, the forward + backward alone, and a torch.profiler
-              breakdown of each step.
+              and replayed from a CUDA graph, and the host µs per call of the
+              kernel's wrapper and the library call; the launch floor (an
+              empty kernel); rank1_update on its largest layer alone; the
+              step times of each optimizer, the forward + backward alone,
+              and a torch.profiler breakdown of each step.
 
 The line before the card line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -84,9 +90,12 @@ MAIN_PATHS = {
     'eva_f': (0.15, ('matvec', 'rank1_update'), ('eva_f_fused',)),
     'eva_s': (0.3, ('bilinear', 'rank1_update'), ('eva_fused',)),
 }
-# matvec_cols: (R, m, n) band shapes of tests/test_kernels.py (R = 5) and the
-# autoencoder's 784-row gradient against a 1000-wide factor
-COLS_SHAPES = [(5, 64, 48), (5, 200, 136), (5, 512, 384), (784, 1000, 1000)]
+# matvec_cols: (R, m, n) band shapes of tests/test_kernels.py (R = 5), the
+# autoencoder's 784- and 500-row gradients against a 1000-wide factor, and
+# a shape whose rows are 16-byte aligned in neither operand (odd m and n)
+COLS_PATH = (784, 1000, 1000)
+COLS_SHAPES = [(5, 64, 48), (5, 200, 136), (5, 512, 384), COLS_PATH,
+               (500, 1000, 1000), (37, 129, 131)]
 COLS_TOL = 1e-5                 # of each output's scale Σ_k |a_rk g_kc|
 # optimizer -> (lr of benchmarks/fig4_autoencoder.py, the sharded-factor
 # config): the four factor sides of width 1000 trip, 32 band products each
@@ -192,14 +201,22 @@ def kernels_phase(torch):
             require(bool((e <= tol * scale).all()),
                     f'bilinear {tag}: err {e.max().item():.3e} > '
                     f'{tol} x scale')
-            # rank1_update
+            # rank1_update: the plain version's bits, from the (L, 2) pairs
+            # and from two tensors (strided views of the pairs, and
+            # contiguous copies) alike
             cs = _cs(torch, g, a, b, want)
             p = r1.rank1_update_stacked(g, a, b, cs)
             p_want = ref.rank1_update_ref(g, a, b, cs[:, 0], cs[:, 1])
             require(p.dtype == g.dtype, f'rank1_update {tag}: dtype {p.dtype}')
             ep = (p.float() - p_want.float()).abs()
-            require(bool((ep <= tol + tol * p_want.float().abs()).all()),
-                    f'rank1_update {tag}: err {ep.max().item():.3e}')
+            require(torch.equal(p, p_want),
+                    f'rank1_update {tag}: err {ep.max().item():.3e}, not the '
+                    f'plain version\'s bits')
+            for c2, s2 in ((cs[:, 0], cs[:, 1]),
+                           (cs[:, 0].contiguous(), cs[:, 1].contiguous())):
+                require(torch.equal(r1.rank1_update_stacked(g, a, b, c2, s2),
+                                    p), f'rank1_update {tag}: two-tensor '
+                        f'form != pair form')
             # fused, both folds, held on the γ-scaled output as test_fused.py
             for fold in (False, True):
                 out, aux = fused.eva_fused_stacked(g, a, b, GAMMA, m, MU, fold)
@@ -270,13 +287,47 @@ def kernels_phase(torch):
                   f'{ec.max().item():.2e}; matvec err {emv:.2e} '
                   f'({emv_rel:.2e} of scale), eva_f_fused err {efc:.2e}, '
                   f'vs composed {efc_comp:.2e}', flush=True)
+    _rank1_offset_checks(torch)
     for seed, rmn in enumerate(COLS_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             e = _matvec_cols_checks(torch, rmn, dtype, 50 + seed)
-            if rmn == COLS_SHAPES[-1] and dtype == torch.float32:
+            if rmn == COLS_PATH and dtype == torch.float32:
                 err['matvec_cols'] = e
+                print(f'  matvec_cols {"x".join(map(str, rmn))} f32: max abs '
+                      f'err against the plain version {e!r}', flush=True)
     torch.cuda.synchronize()
     return err
+
+
+def _rank1_offset_checks(torch):
+    """rank1_update on a G that starts one element past a 16-byte boundary
+    (a view with a storage offset of one), f32 and bf16, at the ragged
+    1000 x 513 (odd d_out) and the 784 x 1000 layer: the plain version's
+    bits, unstacked and stacked, from two 0-d tensors and from the pair."""
+    from repro_torch.kernels import rank1_update as r1
+    from repro_torch.kernels import ref
+    for seed, shape in enumerate([(1000, 513), (784, 1000)]):
+        for dtype in (torch.float32, torch.bfloat16):
+            gen = torch.Generator(device='cuda').manual_seed(70 + seed)
+            flat = torch.randn(1 + shape[0] * shape[1], generator=gen,
+                               device='cuda').to(dtype)
+            g = flat[1:].view(shape)
+            a = torch.randn(shape[:1], generator=gen, device='cuda')
+            b = torch.randn(shape[1:], generator=gen, device='cuda')
+            c = torch.tensor(0.37, device='cuda')
+            s = torch.tensor(2.5, device='cuda')
+            tag = (f'rank1_update offset view {"x".join(map(str, shape))} '
+                   f'{str(dtype).rsplit(".", 1)[-1]}')
+            require(g.storage_offset() == 1 and g.data_ptr() % 16 != 0, tag)
+            p = r1.rank1_update(g, a, b, c, s)
+            require(torch.equal(p, ref.rank1_update_ref(g, a, b, c, s)),
+                    f'{tag}: not the plain version\'s bits')
+            require(torch.equal(r1.rank1_update(g, a, b, torch.stack([c, s])),
+                                p), f'{tag}: pair form != two tensors')
+            require(torch.equal(r1.rank1_update_stacked(
+                g[None], a[None], b[None], c[None], s[None])[0], p),
+                f'{tag}: stacked != unstacked')
+            print(f'  ok {tag}: bit for bit', flush=True)
 
 
 def _matvec_cols_checks(torch, rmn, dtype, seed):
@@ -314,9 +365,11 @@ def _matvec_cols_checks(torch, rmn, dtype, seed):
     for i in range(2):
         require(torch.equal(mv.matvec_cols(g[i], a[i]), u[i]),
                 f'{tag}: stacked != item {i}')
+    plan = mv.cols_plan(r, n, mv._sm_count(g.get_device()))
     print(f'  ok {tag}: err {e.max().item():.2e} '
           f'({(e / scale).max().item():.2e} of scale); band sums W=2 '
-          f'{worst[2]:.2e}, W=4 {worst[4]:.2e} of their limit', flush=True)
+          f'{worst[2]:.2e}, W=4 {worst[4]:.2e} of their limit; tile '
+          f'{plan[1]}x{plan[2]}, grid {plan[3]}x{plan[4]}x2', flush=True)
     return e.max().item()
 
 
@@ -456,16 +509,18 @@ def _compare_steps(torch, model, params0, batches, *, fused, lr, name,
 
 
 def _path_kernels():
-    """kernel -> (wrapper module, stacked wrapper's name, its plain version
-    on the same arguments).  Each kernel's unstacked wrapper calls its
-    stacked one, so these see every call."""
-    from repro_torch.kernels import bilinear, fused, matvec, rank1_update, ref
+    """kernel -> (wrapper module, wrapper's name, its plain version on the
+    same arguments).  Each kernel's unstacked wrapper calls the one named
+    (its stacked wrapper; rank1_update's launch function), so these see
+    every call."""
+    from repro_torch.kernels import (bilinear, dispatch, fused, matvec,
+                                     rank1_update, ref)
     return {
         'bilinear': (bilinear, 'bilinear_and_norms_stacked',
                      ref.bilinear_and_norms_ref),
-        'rank1_update': (rank1_update, 'rank1_update_stacked',
-                         lambda g, a, b, cs: ref.rank1_update_ref(
-                             g, a, b, cs[:, 0], cs[:, 1])),
+        'rank1_update': (rank1_update, '_launch',
+                         lambda g, a, b, c, s, *_: ref.rank1_update_ref(
+                             g, a, b, *dispatch._pair(c, s))),
         'matvec': (matvec, 'matvec_and_norm_stacked',
                    ref.matvec_and_norm_ref),
         'eva_fused': (fused, 'eva_fused_stacked', ref.eva_fused_ref),
@@ -504,7 +559,7 @@ def _check_path_inputs(torch, seen, what):
     largest error as a share of its limit, and for each rank1_update call
     the share of its elements that the rank-one term moves off s·G (0 where
     the term is below G's rounding)."""
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import dispatch, ref
     kernels = _path_kernels()
     worst, moved = {}, []
     for (name, shape), (args, kw) in sorted(seen.items()):
@@ -533,7 +588,8 @@ def _check_path_inputs(torch, seen, what):
         elif name == 'rank1_update':
             e = (got.float() - want.float()).abs()
             share = (e / (tol + tol * want.float().abs())).max().item()
-            sg = (args[3][:, 1, None, None] * g.float()).to(g.dtype)
+            scale = dispatch._pair(args[3], args[4])[1]
+            sg = (scale[..., None, None] * g.float()).to(g.dtype)
             moved.append((got != sg).float().mean().item())
         else:
             gamma = args[3] if name == 'eva_fused' else args[2]
@@ -828,6 +884,60 @@ def _graph_ms(torch, fn, iters):
     return _time_ms(torch, graph.replay, iters)
 
 
+def _host_us(torch, fn, reps, calls):
+    """Host µs per wrapper call: the enqueue rate of ``reps`` runs of
+    ``fn`` (``calls`` wrapper calls each) on an idle card, with no
+    synchronize inside the window."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) * 1e6 / (reps * calls)
+
+
+def _launch_floor(torch):
+    """µs per launch of a kernel that does nothing (``repro_empty`` of
+    common.cuh, one 32-thread block), 100 launches replayed from a CUDA
+    graph, and the host µs per eager launch through ctypes."""
+    from repro_torch.kernels import build
+    lib = build.library('rank1_update', {})
+    lib.repro_empty.argtypes = [build.P]
+    lib.repro_empty.restype = build.I32
+
+    def hundred():
+        stream = torch.cuda.current_stream().cuda_stream
+        for _ in range(100):
+            lib.repro_empty(stream)
+    return {'graph_us_per_launch': _graph_ms(torch, hundred, 20) * 10,
+            'eager_us_per_launch': _time_ms(torch, hundred, 20) * 10,
+            'host_us_per_launch': _host_us(torch, hundred, 5, 100)}
+
+
+def _rank1_largest(torch, layer):
+    """rank1_update on the largest layer (784 x 1000) alone, beside
+    torch.addr on it: µs per call, 20 calls replayed from one graph, against
+    the byte bound.  G and P (6.3 MB) stay in the 50 MB L2 from one call to
+    the next, as the gradient does between the backward pass and the
+    optimizer."""
+    from repro_torch.kernels import rank1_update as r1
+    g, a, b, _, (c, s), cf, sf = layer
+    n_bytes = 4 * (2 * g.numel() + a.numel() + b.numel() + 2)
+    bound_us = _bound(n_bytes, 4 * g.numel())[0] * 1e3
+    graph_us = _graph_ms(torch, lambda: [r1.rank1_update(g, a, b, c, s)
+                                         for _ in range(20)], 50) * 1e3 / 20
+    addr_us = _graph_ms(torch, lambda: [torch.addr(g, a, b, beta=sf,
+                                                   alpha=-cf * sf)
+                                        for _ in range(20)], 50) * 1e3 / 20
+    return {'largest_layer': 'x'.join(map(str, g.shape)),
+            'largest_layer_graph_us': graph_us,
+            'largest_layer_library_graph_us': addr_us,
+            'largest_layer_bound_us': bound_us,
+            'largest_layer_bound_share': bound_us / graph_us}
+
+
 def _bound(n_bytes, n_flops):
     t_bytes = n_bytes / HBM_BYTES_PER_S
     t_ops = n_flops / F32_FLOPS
@@ -847,7 +957,8 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
         g, a, b, m = _inputs(torch, (d_in, d_out), torch.float32, 100 + seed)
         cs = _cs(torch, g, a, b, ref.bilinear_ref(g, a, b))
         c, s = cs.tolist()
-        layers.append((g, a, b, m, cs, c, s))
+        # the path hands rank1_update two 0-d device tensors
+        layers.append((g, a, b, m, (cs[0].clone(), cs[1].clone()), c, s))
     n = sum(d_in * d_out for d_in, d_out in AE_SHAPES)
     vec_in = sum(d_in for d_in, _ in AE_SHAPES)
     vec = vec_in + sum(d_out for _, d_out in AE_SHAPES)
@@ -867,9 +978,9 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
             lambda: [torch.einsum('io,i,o->', g, a, b)
                      for g, a, b, *_ in layers]),
         'rank1_update': (
-            lambda: [r1.rank1_update(g, a, b, cs)
+            lambda: [r1.rank1_update(g, a, b, *cs)
                      for g, a, b, m, cs, c, s in layers],
-            lambda: [ref.rank1_update_ref(g, a, b, cs[0], cs[1])
+            lambda: [ref.rank1_update_ref(g, a, b, *cs)
                      for g, a, b, m, cs, c, s in layers],
             lambda: [torch.addr(g, a, b, beta=s, alpha=-c * s)
                      for g, a, b, m, cs, c, s in layers]),
@@ -928,10 +1039,13 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
         # TF32 is off (phase 1): the library product is full f32
         lambda: [torch.matmul(a, g) for _ in range(reps) for g, a in cols])
     row_iters = {'matvec_cols': 5}
+    calls = {name: len(layers) for name in fns}
+    calls['matvec_cols'] = reps * len(cols)
     rows = []
     for name, (kern, plain, lib) in fns.items():
         iters = row_iters.get(name, 100)
         bound_ms, bound_by = _bound(*work[name])
+        host_reps = max(1, 160 // calls[name])
         row = {
             'name': name, 'route': 'cuda', 'source': meta[name][0],
             'replaces': meta[name][1], 'jax_rows': meta[name][2],
@@ -945,15 +1059,25 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
             'plain_graph_ms': _graph_ms(torch, plain, iters),
             'bound_ms': bound_ms, 'bound_by': bound_by,
             'library_ms': None if lib is None else _time_ms(torch, lib, iters),
+            'library_graph_ms': None if lib is None
+            else _graph_ms(torch, lib, iters),
+            'host_us_per_call': _host_us(torch, kern, host_reps, calls[name]),
+            'library_host_us_per_call': None if lib is None
+            else _host_us(torch, lib, host_reps, calls[name]),
         }
         if name == 'matvec_cols':
             row['library'] = ('torch.matmul, allow_tf32='
                               f'{torch.backends.cuda.matmul.allow_tf32}')
+        if name == 'rank1_update':
+            row.update(_rank1_largest(torch, layers[0]))
         rows.append(row)
         print(f'  {name}: ' + ', '.join(
             f'{key} {row[key]:.4f}' for key in
-            ('ms', 'graph_ms', 'plain_ms', 'plain_graph_ms', 'bound_ms')),
+            ('ms', 'graph_ms', 'plain_ms', 'plain_graph_ms', 'bound_ms',
+             'library_ms', 'library_graph_ms', 'host_us_per_call',
+             'library_host_us_per_call') if row[key] is not None),
             flush=True)
+    print(json.dumps({'launch_floor': _launch_floor(torch)}), flush=True)
 
     variants = _main_variants()
     steps = _step_times(torch, model, params0, batches, variants,

@@ -11,8 +11,9 @@ Counterpart of ``repro/kernels/dispatch.py``, with three impls:
   * ``'auto'``  — ``'cuda'`` for a CUDA tensor, ``'torch'`` for a CPU one.
 
 Autotuning and the tile cache of the reference wait for a later change: the
-CUDA kernels have one fixed partition each (``csrc/*.cu``).  Launch counts
-live in ``launches.py``.
+CUDA kernels have one fixed partition each (``csrc/*.cu``), except
+``matvec_cols``, whose tile ``matvec.cols_plan`` picks from the shape.
+Launch counts live in ``launches.py``.
 """
 from __future__ import annotations
 
@@ -81,18 +82,25 @@ def bilinear_and_norms_stacked(g, a, b, impl: str = 'auto'):
     return _bil.bilinear_and_norms_stacked(g, a, b)
 
 
-def rank1_update(g, a, b, coeff, scale, impl: str = 'auto'):
-    """coeff/scale: 0-d f32 tensors on g's device."""
-    if resolve(impl, g) == 'torch':
-        return ref.rank1_update_ref(g, a, b, coeff, scale)
-    return _r1.rank1_update(g, a, b, torch.stack([coeff, scale]))
+def _pair(coeff, scale):
+    """(coeff, scale) from the two tensors, or from the (..., 2) pairs."""
+    return (coeff[..., 0], coeff[..., 1]) if scale is None else (coeff, scale)
 
 
-def rank1_update_stacked(g, a, b, coeff, scale, impl: str = 'auto'):
-    """coeff/scale: (L,) f32 tensors on g's device."""
+def rank1_update(g, a, b, coeff, scale=None, impl: str = 'auto'):
+    """coeff/scale: 0-d f32 tensors on g's device, handed to the kernel as
+    they are; or coeff the (2,) [coeff, scale] pair and scale None."""
     if resolve(impl, g) == 'torch':
-        return ref.rank1_update_ref(g, a, b, coeff, scale)
-    return _r1.rank1_update_stacked(g, a, b, torch.stack([coeff, scale], -1))
+        return ref.rank1_update_ref(g, a, b, *_pair(coeff, scale))
+    return _r1.rank1_update(g, a, b, coeff, scale)
+
+
+def rank1_update_stacked(g, a, b, coeff, scale=None, impl: str = 'auto'):
+    """coeff/scale: (L,) f32 tensors on g's device; or coeff the (L, 2)
+    pairs and scale None."""
+    if resolve(impl, g) == 'torch':
+        return ref.rank1_update_ref(g, a, b, *_pair(coeff, scale))
+    return _r1.rank1_update_stacked(g, a, b, coeff, scale)
 
 
 def eva_fused_stacked(g, a, b, gamma: float, m, mu: float,

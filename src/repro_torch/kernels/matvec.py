@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, launches
+from repro_torch.kernels import build, launch, launches
 from repro_torch.kernels.bilinear import check_operands
 
 _SIGNATURES = {
@@ -30,8 +30,9 @@ _SIGNATURES = {
 
 
 _COLS_SIGNATURES = {
-    'repro_matvec_cols': [build.P, build.I32, build.P, build.P, build.I64,
-                          build.I64, build.I64, build.I64, build.P],
+    'repro_matvec_cols': [build.I32, build.I32, build.P, build.I32, build.P,
+                          build.P, build.I64, build.I64, build.I64, build.I64,
+                          build.I32, build.I32, build.I64, build.I64, build.P],
 }
 
 
@@ -81,23 +82,67 @@ def matvec_and_norm(g, a):
     return u[0], asq[0]
 
 
+# Tile shapes of csrc/matvec_cols.cu, by its config index: (TM, TN, TY, TX)
+# is a TM x TN register tile per thread on a TY x TX grid of threads, so a
+# block owns BM = TM * TY rows of R by BN = TN * TX columns of n.
+COLS_TILES = ((8, 4, 8, 16), (7, 4, 8, 28))
+H100_SMS = 132
+
+
+def cols_plan(R: int, n: int, sms: int = H100_SMS
+              ) -> tuple[int, int, int, int, int]:
+    """(config, BM, BN, grid_x, grid_y) for U (R, n): the tile whose blocks
+    leave the busiest SM the fewest outputs, ceil(tiles / sms) * BM * BN;
+    on a tie the earlier config.  Depends on (R, n) and the SM count alone,
+    never on L or the band depth m (which every block walks whole)."""
+    best = None
+    for cfg, (tm, tn, ty, tx) in enumerate(COLS_TILES):
+        bm, bn = tm * ty, tn * tx
+        gx, gy = -(-n // bn), -(-R // bm)
+        cost = -(-(gx * gy) // sms) * bm * bn
+        if best is None or cost < best[0]:
+            best = (cost, (cfg, bm, bn, gx, gy))
+    return best[1]
+
+
+_SMS: dict[int, int] = {}   # SM count per device index
+
+
+def _sm_count(index: int) -> int:
+    count = _SMS.get(index)
+    if count is None:
+        count = _SMS[index] = \
+            torch.cuda.get_device_properties(index).multi_processor_count
+    return count
+
+
 def matvec_cols_stacked(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     """Stacked band partials U_l = A_l G_l: g (L, m, n) f32|bf16, a (L, R, m)
     f32 -> (L, R, n) f32, from one launch.  Each output is one f32
     multiply-add chain over the band rows in order, so an item gives the
     same bits alone or in a stack."""
-    check_operands(g, a, widths=((a.shape[1], g.shape[1]),))
+    index = launch.check_g(g, 3)
     L, m, n = g.shape
+    if L < 1 or L > 65535:
+        raise ValueError(f'stack size L={L} outside [1, 65535]')
+    if a.dim() != 3 or a.shape[1] < 1:
+        raise ValueError(f'a must be (L, R, m) with R >= 1, got '
+                         f'{tuple(a.shape)}')
     R = a.shape[1]
-    if R < 1:
-        raise ValueError('a must hold at least one vector')
-    lib = build.library('matvec_cols', _COLS_SIGNATURES)
+    launch.check_f32(a, (L, R, m), index)
+    if max(R, m) * n >= 2 ** 31 or R * m >= 2 ** 31:
+        raise ValueError(f'{R}x{m}x{n} exceeds 32-bit indexing')
+    cfg, _, _, gx, gy = cols_plan(R, n, _sm_count(index))
+    g_ptr, a_ptr = g.data_ptr(), a.data_ptr()
+    a_vec = m % 4 == 0 and a_ptr % 16 == 0
+    g_vec = n % 4 == 0 and g_ptr % 16 == 0
+    bf16 = g.dtype is torch.bfloat16
     u = torch.empty((L, R, n), dtype=torch.float32, device=g.device)
-    with torch.cuda.device(g.device):
-        stream = torch.cuda.current_stream(g.device).cuda_stream
-        build.check(lib, lib.repro_matvec_cols(
-            g.data_ptr(), int(g.dtype == torch.bfloat16), a.data_ptr(),
-            u.data_ptr(), L, R, m, n, stream), 'matvec_cols launch')
+    # the copy engine (TMA) fills the stages where every row is aligned f32
+    launch.call(launch.entry('matvec_cols', 'repro_matvec_cols',
+                             _COLS_SIGNATURES), index, 'matvec_cols launch',
+                cfg, a_vec and g_vec and not bf16, g_ptr, bf16, a_ptr,
+                u.data_ptr(), L, R, m, n, a_vec, g_vec, gx, gy)
     launches.COUNTS['matvec_cols'] += 1
     return u
 

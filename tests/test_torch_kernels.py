@@ -100,6 +100,31 @@ def test_rank1_update_matches_pallas(shape, dtype, stacked):
                                atol=TOL[dtype], rtol=TOL[dtype])
 
 
+@pytest.mark.parametrize('stacked', [False, True])
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', [(64, 48), (129, 127), (1000, 513)])
+def test_rank1_update_coefficient_forms_agree(shape, dtype, stacked):
+    """The two-tensor form (coeff, scale) and the reference's pair form
+    (cs, None) of the dispatch give the same bits, and both match the
+    Pallas kernel; the pair form may be a strided view."""
+    lead = (3,) if stacked else ()
+    (jg, ja, jb, _), (g, a, b, _) = _mk(shape, dtype, lead, seed=5)
+    rng = np.random.default_rng(6)
+    coeff = rng.standard_normal(lead, dtype=np.float32)
+    scale = np.float32(1.5) + rng.random(lead, dtype=np.float32)
+    c, s = torch.as_tensor(coeff), torch.as_tensor(scale)
+    wide = torch.stack([c, torch.zeros_like(c), s], -1)
+    cs = wide[..., ::2]                       # stride 2 between the pair
+    fn = dispatch.rank1_update_stacked if stacked else dispatch.rank1_update
+    jfn = jr1.rank1_update_stacked if stacked else jr1.rank1_update
+    two, pair = fn(g, a, b, c, s), fn(g, a, b, cs)
+    assert torch.equal(two, pair) and two.dtype == g.dtype
+    want = jfn(jg, ja, jb, jnp.asarray(coeff), jnp.asarray(scale), **BLOCK)
+    np.testing.assert_allclose(two.float().numpy(),
+                               np.asarray(want, np.float32),
+                               atol=TOL[dtype], rtol=TOL[dtype])
+
+
 @pytest.mark.parametrize('fold', [False, True])
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('shape', SHAPES)
@@ -138,15 +163,41 @@ def test_dispatch_impls_agree_on_cpu(impl):
 @pytest.mark.parametrize('wrapper', [
     lambda g, a, b, m: bil.bilinear_and_norms_stacked(g, a, b),
     lambda g, a, b, m: r1.rank1_update_stacked(g, a, b, torch.ones(3, 2)),
+    lambda g, a, b, m: r1.rank1_update_stacked(g, a, b, torch.ones(3),
+                                               torch.ones(3)),
+    lambda g, a, b, m: r1.rank1_update(g[0], a[0], b[0], torch.ones(()),
+                                       torch.ones(())),
+    lambda g, a, b, m: r1.rank1_update(g[0], a[0], b[0], torch.ones(2)),
     lambda g, a, b, m: fused.eva_fused_stacked(g, a, b, GAMMA, m, MU),
     lambda g, a, b, m: mv.matvec_and_norm_stacked(g, a),
     lambda g, a, b, m: fused.eva_f_fused_stacked(g, a, GAMMA, m, MU),
-], ids=['bilinear', 'rank1_update', 'eva_fused', 'matvec', 'eva_f_fused'])
+    lambda g, a, b, m: mv.matvec_cols_stacked(g, a[:, None]),
+    lambda g, a, b, m: mv.matvec_cols(g[0], a[:2]),
+], ids=['bilinear', 'rank1_update', 'rank1_update_two_tensors',
+        'rank1_update_unstacked', 'rank1_update_unstacked_pair', 'eva_fused',
+        'matvec', 'eva_f_fused', 'matvec_cols_stacked', 'matvec_cols'])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """A kernel wrapper launches its kernel or raises: it has no CPU path."""
     _, (g, a, b, m) = _mk((64, 48), 'float32', (3,), seed=3)
     with pytest.raises(ValueError, match='must be a CUDA tensor'):
         wrapper(g, a, b, m)
+
+
+@pytest.mark.parametrize('dtype', [torch.float16, torch.float64, torch.int32])
+@pytest.mark.parametrize('wrapper', [
+    lambda g, a, b: r1.rank1_update_stacked(g, a, b, torch.ones(3, 2)),
+    lambda g, a, b: r1.rank1_update(g[0], a[0], b[0], torch.ones(()),
+                                    torch.ones(())),
+    lambda g, a, b: mv.matvec_cols_stacked(g, a[:, None]),
+    lambda g, a, b: mv.matvec_cols(g[0], a[:2]),
+], ids=['rank1_update_stacked', 'rank1_update', 'matvec_cols_stacked',
+        'matvec_cols'])
+def test_lean_wrappers_refuse_wrong_dtypes(wrapper, dtype):
+    """The lean launch path takes g in f32 or bf16 only, whatever its
+    device."""
+    _, (g, a, b, _) = _mk((64, 48), 'float32', (3,), seed=3)
+    with pytest.raises(TypeError, match='float32 or bfloat16'):
+        wrapper(g.to(dtype), a, b)
 
 
 def test_dispatch_rejects_unknown_impl():
@@ -183,4 +234,25 @@ def test_cuda_kernels_match_plain_on_card(shape):
         assert torch.equal(bil.bilinear_stacked(g[sl], a[sl], b[sl]), dot[sl])
         assert torch.equal(r1.rank1_update_stacked(g[sl], a[sl], b[sl],
                                                    cs[sl]), p[sl])
+    launches.reset()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', [(1000, 513), (129, 127), (7, 3)])
+def test_rank1_update_misaligned_on_card(shape, dtype):
+    """The vectorised rank-one kernel on a G that starts one element past a
+    16-byte boundary and whose length is no multiple of the vector width:
+    the plain version's bits, and the two coefficient forms alike (needs a
+    card and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernel has no CPU mode')
+    _, (g, a, b, _) = _mk(shape, dtype, seed=7)
+    flat = torch.cat([torch.zeros(1, dtype=g.dtype), g.reshape(-1)]).cuda()
+    g, a, b = flat[1:].view(shape), a.cuda(), b.cuda()
+    c = torch.tensor(0.37, device='cuda')
+    s = torch.tensor(2.5, device='cuda')
+    p = r1.rank1_update(g, a, b, c, s)
+    assert torch.equal(p, ref.rank1_update_ref(g, a, b, c, s))
+    assert torch.equal(r1.rank1_update(g, a, b, torch.stack([c, s])), p)
     launches.reset()

@@ -138,9 +138,54 @@ def test_cuda_impl_refuses_cpu_tensors():
         fsh._matvec_partial(g[:, :4], a, 1, None, impl='cuda')
 
 
+def _outputs_per_cell(R, n, plan):
+    """How many (block, thread, register) slots of the kernel's tiling
+    write each output of U (R, n): block (x, y), thread (ty, tx), register
+    (i, h, j) owns row y·BM + ty·TM + i and column x·BN + 4·tx + h·BN/2 + j
+    (csrc/matvec_cols.cu), written only inside (R, n)."""
+    cfg, bm, bn, gx, gy = plan
+    tm, tn, ty, tx = mv.COLS_TILES[cfg]
+    assert (bm, bn) == (tm * ty, tn * tx)
+    rows = (np.arange(gy)[:, None, None] * bm + np.arange(ty)[None, :, None]
+            * tm + np.arange(tm)[None, None, :]).ravel()
+    cols = (np.arange(gx)[:, None, None, None] * bn
+            + 4 * np.arange(tx)[None, :, None, None]
+            + np.arange(tn // 4)[None, None, :, None] * (bn // 2)
+            + np.arange(4)[None, None, None, :]).ravel()
+    count = np.zeros((R, n), np.int64)
+    rr, cc = rows[rows < R], cols[cols < n]
+    np.add.at(count, (rr[:, None], cc[None, :]), 1)
+    return count
+
+
+@pytest.mark.parametrize('rn', [(784, 1000), (500, 1000), (5, 48), (5, 136),
+                                (5, 384), (10, 1000), (37, 131), (1, 1),
+                                (3000, 77), (57, 129)])
+def test_cols_plan_covers_every_output_once(rn):
+    """The tile plan of ``matvec_cols_stacked`` writes each output exactly
+    once, with no block wholly outside U, and is a function of (R, n) and
+    the SM count alone."""
+    R, n = rn
+    for sms in (132, 114, 7):
+        plan = mv.cols_plan(R, n, sms)
+        _, bm, bn, gx, gy = plan
+        assert (gx - 1) * bn < n <= gx * bn and (gy - 1) * bm < R <= gy * bm
+        assert np.all(_outputs_per_cell(R, n, plan) == 1)
+        assert plan == mv.cols_plan(R, n, sms)
+
+
+def test_cols_plan_on_the_autoencoder_path():
+    """On 132 SMs the two band products of the sharded autoencoder each
+    fill one wave: 56x112 tiles at R = 784 (126 blocks), 64x64 at R = 500
+    (128 blocks)."""
+    assert mv.cols_plan(784, 1000) == (1, 56, 112, 9, 14)
+    assert mv.cols_plan(500, 1000) == (0, 64, 64, 16, 8)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize('rmn', [(784, 1000, 1000), (5, 200, 136),
-                                 (3, 17, 5)])
+                                 (3, 17, 5), (500, 1000, 1000),
+                                 (37, 129, 131)])
 def test_matvec_cols_matches_plain_on_card(rmn):
     """The CUDA kernel against its plain version, f32 and bf16, and stacked
     against per item bit for bit (needs a card and nvcc)."""
