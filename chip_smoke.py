@@ -22,7 +22,12 @@ Phases; any failure stops the run with a non-zero exit:
               37 x 129 x 131 stack aligned in neither operand, f32 and bf16:
               against its plain version, its W=2 and W=4 band partials
               summed against the float64 product, stacked against per item
-              bit for bit.
+              bit for bit.  matvec and eva_fused (both folds): three calls
+              in a row, and a CUDA graph of one call replayed three times,
+              give the first call's bits (eva_fused's kernel keeps its
+              arrival counters at zero), f32 and bf16, on 784 x 1000, 3 x
+              1000 x 1000 and 2 x 129 x 127; capturing a call that would
+              grow the kernel workspace raises.
 4. main     — the paper's full-width autoencoder
               (784-1000-500-250-30-250-500-1000-784, batch 1000) trained by
               Eva, Eva-f and Eva-s, 20 steps composed and 20 fused each,
@@ -46,7 +51,10 @@ Phases; any failure stops the run with a non-zero exit:
 6. times    — CUDA-event times of each kernel, its plain version and the
               one-call library equivalent at the autoencoder's shapes, eager
               and replayed from a CUDA graph, and the host µs per call of the
-              kernel's wrapper and the library call; the launch floor (an
+              kernel's wrapper and the library call; the device launches of
+              one wrapper call (the profiler's kernels, all and the port's
+              own: 1 for matvec, 2 for eva_fused, 3 port kernels for
+              eva_f_fused); the launch floor (an
               empty kernel); rank1_update on its largest layer alone; the
               step times of each optimizer, the forward + backward alone,
               and a torch.profiler breakdown of each step.
@@ -80,6 +88,14 @@ MATVEC_TOL = 1e-5
 FUSED_TOL = 1e-6                            # tests/test_fused.py
 TRAJ_RTOL = 1e-4                            # cuda vs torch loss, per step
 PARAM_RTOL = 1e-4                           # cuda vs torch, a leaf's step
+# kernel -> (the port's device launches a wrapper call, all device launches
+# a call, None: not held): one for matvec, two for eva_fused, and no
+# PyTorch kernel beside them; eva_f_fused's wrapper forms its scalars with
+# PyTorch ops between matvec and its emit kernel, and sums aux with
+# bilinear.cu's kernel
+DEVICE_LAUNCHES = {'bilinear': (2.0, 2.0), 'rank1_update': (1.0, 1.0),
+                   'eva_fused': (2.0, 2.0), 'matvec': (1.0, 1.0),
+                   'eva_f_fused': (3.0, None), 'matvec_cols': (1.0, 1.0)}
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 F32_FLOPS = 67e12                           # H100 SXM f32, no tensor cores
 STEPS = 20
@@ -288,6 +304,7 @@ def kernels_phase(torch):
                   f'({emv_rel:.2e} of scale), eva_f_fused err {efc:.2e}, '
                   f'vs composed {efc_comp:.2e}', flush=True)
     _rank1_offset_checks(torch)
+    _repeat_and_replay_checks(torch)
     for seed, rmn in enumerate(COLS_SHAPES):
         for dtype in (torch.float32, torch.bfloat16):
             e = _matvec_cols_checks(torch, rmn, dtype, 50 + seed)
@@ -328,6 +345,74 @@ def _rank1_offset_checks(torch):
                 g[None], a[None], b[None], c[None], s[None])[0], p),
                 f'{tag}: stacked != unstacked')
             print(f'  ok {tag}: bit for bit', flush=True)
+
+
+def _capture(torch, fn):
+    """A CUDA graph of one call of ``fn``, after three eager calls on a side
+    stream (which also grow the kernel workspace), and the graph's
+    outputs."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    return graph, outs
+
+
+def _repeat_and_replay_checks(torch):
+    """matvec and eva_fused, the kernels redesigned to one and two
+    launches: three calls in a row, and a CUDA graph of one call replayed
+    three times, each give the first call's bits (so eva_fused's arrival
+    counters are back at zero after every call).  Then a capture that
+    would grow the workspace raises."""
+    from repro_torch.kernels import fused, launch
+    from repro_torch.kernels import matvec as mv
+    for seed, shape in enumerate([(1, 784, 1000), (3, 1000, 1000),
+                                  (2, 129, 127)]):
+        for dtype in (torch.float32, torch.bfloat16):
+            g, a, b, m = _inputs(torch, shape, dtype, 80 + seed)
+            tag = f'{"x".join(map(str, shape))} {str(dtype).rsplit(".", 1)[-1]}'
+            calls = {
+                'matvec': lambda: mv.matvec_and_norm_stacked(g, a),
+                'eva_fused': lambda: fused.eva_fused_stacked(
+                    g, a, b, GAMMA, m, MU, True),
+                'eva_fused fold=False': lambda: fused.eva_fused_stacked(
+                    g, a, b, GAMMA, None, MU, False),
+            }
+            for name, fn in calls.items():
+                first = [x.clone() for x in fn()]
+                for i in range(2):
+                    require(all(torch.equal(x, y) for x, y in
+                                zip(fn(), first)),
+                            f'{name} {tag}: call {i + 2} != call 1')
+                graph, outs = _capture(torch, fn)
+                for i in range(3):
+                    graph.replay()
+                    torch.cuda.synchronize()
+                    require(all(torch.equal(x, y) for x, y in
+                                zip(outs, first)),
+                            f'{name} {tag}: graph replay {i + 1} != call 1')
+            print(f'  ok {tag}: matvec, eva_fused: 3 calls and 3 graph '
+                  f'replays bit for bit', flush=True)
+    # a capture that would grow the workspace raises, and leaves it as it was
+    index = torch.cuda.current_device()
+    kept = launch._workspaces.pop(index, None)
+    g, a, b, m = _inputs(torch, (1, 250, 30), torch.float32, 89)
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph):
+            fused.eva_fused_stacked(g, a, b, GAMMA, m, MU, True)
+        fail('a capture that grows the kernel workspace did not raise')
+    except RuntimeError as e:
+        require('before capture' in str(e), f'capture growth raised {e!r}')
+    finally:
+        if kept is not None:
+            launch._workspaces[index] = kept
+    print('  ok: growing the workspace during capture raises', flush=True)
 
 
 def _matvec_cols_checks(torch, rmn, dtype, seed):
@@ -511,8 +596,8 @@ def _compare_steps(torch, model, params0, batches, *, fused, lr, name,
 def _path_kernels():
     """kernel -> (wrapper module, wrapper's name, its plain version on the
     same arguments).  Each kernel's unstacked wrapper calls the one named
-    (its stacked wrapper; rank1_update's launch function), so these see
-    every call."""
+    (its stacked wrapper; rank1_update's and matvec's launch function), so
+    these see every call."""
     from repro_torch.kernels import (bilinear, dispatch, fused, matvec,
                                      rank1_update, ref)
     return {
@@ -521,8 +606,8 @@ def _path_kernels():
         'rank1_update': (rank1_update, '_launch',
                          lambda g, a, b, c, s, *_: ref.rank1_update_ref(
                              g, a, b, *dispatch._pair(c, s))),
-        'matvec': (matvec, 'matvec_and_norm_stacked',
-                   ref.matvec_and_norm_ref),
+        'matvec': (matvec, '_launch',
+                   lambda g, a, *_: ref.matvec_and_norm_ref(g, a)),
         'eva_fused': (fused, 'eva_fused_stacked', ref.eva_fused_ref),
         'eva_f_fused': (fused, 'eva_f_fused_stacked', ref.eva_f_fused_ref),
         'matvec_cols': (matvec, 'matvec_cols_stacked', ref.matvec_cols_ref),
@@ -872,16 +957,24 @@ def _time_ms(torch, fn, iters, repeats=3):
 def _graph_ms(torch, fn, iters):
     """The same, with ``fn`` captured into a CUDA graph and replayed: the
     device time without the host's launch cost."""
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(3):
-            fn()
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
+    graph, _ = _capture(torch, fn)
     return _time_ms(torch, graph.replay, iters)
+
+
+def _device_launches(torch, fn, calls):
+    """Device kernels per wrapper call in one run of ``fn`` (``calls``
+    wrapper calls), from the profiler: (all of them, the port's own)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA]
+    return (sum(e.count for e in events) / calls,
+            sum(e.count for e in events if 'repro::' in e.key) / calls)
 
 
 def _host_us(torch, fn, reps, calls):
@@ -1039,6 +1132,10 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
         # TF32 is off (phase 1): the library product is full f32
         lambda: [torch.matmul(a, g) for _ in range(reps) for g, a in cols])
     row_iters = {'matvec_cols': 5}
+    # launches per call from one call on each band shape: the profiler may
+    # drop events from a run of 128
+    launch_probe = {'matvec_cols': (
+        lambda: [mv.matvec_cols(g, a) for g, a in cols], len(cols))}
     calls = {name: len(layers) for name in fns}
     calls['matvec_cols'] = reps * len(cols)
     rows = []
@@ -1046,10 +1143,19 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
         iters = row_iters.get(name, 100)
         bound_ms, bound_by = _bound(*work[name])
         host_reps = max(1, 160 // calls[name])
+        per_call, port_per_call = _device_launches(
+            torch, *launch_probe.get(name, (kern, calls[name])))
+        port_want, all_want = DEVICE_LAUNCHES[name]
+        require(port_per_call == port_want and
+                all_want in (None, per_call),
+                f'{name}: {per_call} device launches a call, {port_per_call} '
+                f'of them the port\'s, not {(port_want, all_want)}')
         row = {
             'name': name, 'route': 'cuda', 'source': meta[name][0],
             'replaces': meta[name][1], 'jax_rows': meta[name][2],
             'launches': counts[name],
+            'device_launches_per_call': per_call,
+            'port_launches_per_call': port_per_call,
             'launches_per_step': {tag: c[name] for tag, c in per_step.items()
                                   if name in c},
             'max_abs_err': err[name],
@@ -1075,7 +1181,8 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
             f'{key} {row[key]:.4f}' for key in
             ('ms', 'graph_ms', 'plain_ms', 'plain_graph_ms', 'bound_ms',
              'library_ms', 'library_graph_ms', 'host_us_per_call',
-             'library_host_us_per_call') if row[key] is not None),
+             'library_host_us_per_call', 'device_launches_per_call',
+             'port_launches_per_call') if row[key] is not None),
             flush=True)
     print(json.dumps({'launch_floor': _launch_floor(torch)}), flush=True)
 

@@ -1,6 +1,9 @@
 // Shared device code of the port's kernels.  matvec_cols.cu takes only the
 // type helpers (to_f32); the Eva kernels (bilinear.cu, rank1_update.cu,
-// eva_fused.cu, matvec.cu, eva_f_fused.cu) share the rest.
+// eva_fused.cu, matvec.cu, eva_f_fused.cu) share the rest.  matvec.cu and
+// eva_fused.cu have partitions of their own (see their headers) and take
+// from here the reduction rules below, the block sum, the vector loads, the
+// warp norm and (eva_fused.cu) the last-block finish.
 //
 // Work partition of the Eva kernels.  Each cuts each stack item's flattened G
 // (d_in * d_out elements, row-major) into contiguous chunks of kChunk
@@ -15,6 +18,14 @@
 // then the warp sums in a fixed order, one f32 partial per block written to
 // scratch, and a second launch (repro_sum_partials) that sums each item's
 // partials in a fixed order.  No float atomics anywhere.
+//
+// eva_fused.cu's second launch finishes its reduction inside the launch
+// instead (last_arrival below): each block writes its partial, takes a
+// ticket from an integer arrival counter, and the block that draws the last
+// ticket sums the partials of its item in a fixed order.  The ticket only
+// picks which block sums; what is summed, and in which order, is fixed by
+// the partition, so the bits are those of a separate finishing launch.
+// Integer atomics are exact, and their order decides no value.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -117,6 +128,106 @@ __device__ __forceinline__ void emit_rank1_chunk(
 
 inline int num_chunks(long long n, int chunk = kChunk) {
   return static_cast<int>((n + chunk - 1) / chunk);
+}
+
+// ---------------------------------------------------------------------------
+// Vector loads and the last-block finish of matvec.cu and eva_fused.cu.
+
+template <typename T>
+struct Bits;
+template <>
+struct Bits<float> {
+  using type = unsigned int;
+};
+template <>
+struct Bits<__nv_bfloat16> {
+  using type = unsigned short;
+};
+
+__device__ __forceinline__ float bits_to_f32(unsigned int b) {
+  return __uint_as_float(b);
+}
+// bf16 -> f32 is exact: the bf16 bits are the f32's upper half
+__device__ __forceinline__ float bits_to_f32(unsigned short b) {
+  return __uint_as_float(static_cast<unsigned int>(b) << 16);
+}
+
+// N consecutive elements of T from p, as f32: one 8- or 16-byte load when
+// vec (the caller has checked p's alignment and that all N are in range),
+// else cnt scalar loads and zeros past them.  The values are the same
+// either way; only the number of memory transactions differs.
+template <typename T, int N>
+__device__ __forceinline__ void load_f32(const T* __restrict__ p, int cnt,
+                                         bool vec, float (&x)[N]) {
+  using B = typename Bits<T>::type;
+  constexpr int kBytes = N * static_cast<int>(sizeof(T));
+  static_assert(kBytes == 8 || kBytes == 16, "8- or 16-byte vectors only");
+  union {
+    uint4 v16;
+    uint2 v8;
+    B b[N];
+  } u;
+  if (vec) {
+    if constexpr (kBytes == 16)
+      u.v16 = __ldg(reinterpret_cast<const uint4*>(p));
+    else
+      u.v8 = __ldg(reinterpret_cast<const uint2*>(p));
+  } else {
+    const B* q = reinterpret_cast<const B*>(p);
+#pragma unroll
+    for (int k = 0; k < N; ++k) u.b[k] = k < cnt ? __ldg(q + k) : B(0);
+  }
+#pragma unroll
+  for (int k = 0; k < N; ++k) x[k] = bits_to_f32(u.b[k]);
+}
+
+__device__ __forceinline__ bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
+// |v|^2 over n values, summed by one warp: lane l adds v[l]^2, v[l + 32]^2,
+// ... in that order, then warp_sum; the total lands in lane 0.  The order of
+// bilinear.cu's finishing launch, with the loads issued kBatch at a time
+// (zeros past n: s + 0 * 0 is s, since s >= +0).
+template <int kBatch>
+__device__ __forceinline__ float warp_sumsq(const float* __restrict__ v,
+                                            int n) {
+  float s = 0.0f;
+  for (int k = threadIdx.x & 31; k < n; k += kBatch * 32) {
+    float y[kBatch];
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q)
+      y[q] = k + 32 * q < n ? __ldg(v + k + 32 * q) : 0.0f;
+#pragma unroll
+    for (int q = 0; q < kBatch; ++q) s += __fmul_rn(y[q], y[q]);
+  }
+  return warp_sum(s);
+}
+
+// The arrival of one block at its group's integer ticket counter.  Returns
+// true, in every thread of the block, for the block that arrives last;
+// that block then reads the group's partials (with __ldcg, past the SM's
+// own L1) and resets the counter to 0 for the next launch.  Every thread
+// must call it, after storing its share of the partials.  The memory
+// ordering is that of the cooperative-groups grid barrier: the block
+// barrier orders every thread's stores before thread 0's device-scope
+// fence, whose cumulativity makes them visible to any thread that sees the
+// ticket taken after it; thread 0 takes the ticket and broadcasts the
+// verdict through shared memory, and the last block's thread 0 fences
+// again before the barrier that lets the block read the partials.  One
+// fence per block, where a fence in every thread would wait on every
+// thread's stores in turn.
+__device__ __forceinline__ bool last_arrival(unsigned int* counter,
+                                             unsigned int blocks) {
+  __shared__ bool last;
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    last = atomicAdd(counter, 1u) == blocks - 1;
+    if (last) __threadfence();
+  }
+  __syncthreads();
+  return last;
 }
 
 }  // namespace repro

@@ -2,31 +2,42 @@
 (Eva, Eq. 13) and ``csrc/eva_f_fused.cu`` (Eva-f, Eq. 21).
 
 Counterpart of ``repro/kernels/fused.py::eva_fused_stacked`` and
-``::eva_f_fused_stacked``.  One call runs four launches on the current stream
-(see the ``.cu`` files): the reduction's partials and finishing launch give
-dot (L,) and ‖a‖², ‖b‖² for Eva, or u (L, d_out) and ‖a‖² for Eva-f; the emit
-kernel forms coeff in-kernel (dot/denom, or 1/denom), writes out = μ·m + P
-(or P) in f32 and one aux partial per block; a last fixed-order sum gives aux
-(L, 3) = [⟨out,G⟩, ⟨out,out⟩, ⟨G,G⟩].  denom (γ + ‖a‖²‖b‖², or γ + ‖a‖²)
-and 1/γ are formed here, on the device, as the reference wrapper does; the
-norms come from the finishing launch, summed in a fixed order, so an item
-alone and in a stack gets the same bits.  The emit kernels read m only when
-the momentum folds in: without the fold m may be None, and a null pointer
-takes its place.  CUDA tensors only: ``dispatch.py`` routes CPU tensors to
-the plain versions.
+``::eva_f_fused_stacked``.  Both return out = μ·m + P (or P) in f32 and aux
+(L, 3) = [⟨out,G⟩, ⟨out,out⟩, ⟨G,G⟩], every sum in a fixed order, so an item
+alone and in a stack gets the same bits.
+
+``eva_fused_stacked`` is one C call of two launches on the current stream
+(see the ``.cu`` file): the first writes partial sums of aᵀGb and ‖a‖²,
+‖b‖², the second forms coeff = dot / (γ + ‖a‖²‖b‖²) in each of its blocks
+and writes out and aux.  γ, 1/γ and μ go to the kernels as f32 arguments;
+the scratch comes from the device's workspace (``launch.py``), through the
+lean launch path.
+
+``eva_f_fused_stacked`` runs three launches: ``matvec.cu`` gives u and
+‖a‖², the wrapper forms denom = γ + ‖a‖² and the [denom, 1/γ, μ] scalars on
+the device, the emit kernel writes out and one aux partial per block, and
+``bilinear.cu``'s fixed-order sum gives aux.
+
+The emit kernels read m only when the momentum folds in: without the fold m
+may be None, and a null pointer takes its place.  CUDA tensors only:
+``dispatch.py`` routes CPU tensors to the plain versions.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
 from repro_torch.kernels import bilinear as _bil
-from repro_torch.kernels import build, launches
+from repro_torch.kernels import build, launch, launches
 from repro_torch.kernels import matvec as _mv
 
 _SIGNATURES = {
-    'repro_eva_fused_emit': [build.P, build.I32, build.P, build.P, build.P,
-                             build.P, build.P, build.P, build.P, build.I64,
-                             build.I64, build.I64, build.I32, build.P],
+    'repro_eva_fused': [build.P, build.I32, build.P, build.P, build.P,
+                        build.P, build.P, build.P, build.I64, build.P,
+                        build.I64, ctypes.c_float, ctypes.c_float,
+                        ctypes.c_float, build.I32, build.I64, build.I64,
+                        build.I64, build.P],
 }
 _F_SIGNATURES = {
     'repro_eva_f_chunk_elems': [],
@@ -35,9 +46,25 @@ _F_SIGNATURES = {
                                build.I64, build.I64, build.I32, build.P],
 }
 
+# The partition of csrc/eva_fused.cu: kTile elements a block, about
+EF_TILE = 1024
+
+
+def eva_fused_plan(d_in: int, d_out: int) -> tuple[int, int, int, int]:
+    """(rows, dot_blocks, emit_blocks, scratch) per stack item: launch 1's
+    dot_blocks blocks cover ``rows`` whole rows each (one more block sums
+    the norms), launch 2's emit_blocks blocks EF_TILE elements each; an
+    item takes ``scratch`` f32 values (its two norms and both launches'
+    partials) and one counter of the workspace.  Depends on (d_in, d_out)
+    alone."""
+    rows = 1 if d_out >= EF_TILE else EF_TILE // d_out
+    dot_blocks = -(-d_in // rows)
+    emit_blocks = -(-(d_in * d_out) // EF_TILE)
+    return rows, dot_blocks, emit_blocks, 2 + dot_blocks + 3 * emit_blocks
+
 
 def _scalars(denom: torch.Tensor, gamma: float, mu: float) -> torch.Tensor:
-    """(L, 3) f32 [denom, 1/γ, μ] per item, the emit kernels' ``sc``."""
+    """(L, 3) f32 [denom, 1/γ, μ] per item, the Eva-f emit kernel's ``sc``."""
     return torch.stack([denom, torch.full_like(denom, 1.0 / gamma),
                         torch.full_like(denom, mu)], dim=-1)
 
@@ -60,27 +87,33 @@ def eva_fused_stacked(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     a: (L, d_in), b: (L, d_out), m: (L, d_in, d_out) or None without the
     fold, all f32.
 
-    Returns ``(out, aux)``: out (L, d_in, d_out) f32, aux (L, 3) f32.
+    Returns ``(out, aux)``: out (L, d_in, d_out) f32, aux (L, 3) f32.  The
+    scratch comes from the device's workspace (``launch.py``): use one
+    stream per device, and call once eagerly with the shapes of a CUDA
+    graph before capturing it.
     """
+    index = launch.check_g(g, 3)
     L, d_in, d_out = g.shape
+    if L < 1 or L > 65535:
+        raise ValueError(f'stack size L={L} outside [1, 65535]')
+    launch.check_f32(a, (L, d_in), index)
+    launch.check_f32(b, (L, d_out), index)
     ms, m_ptr = _momentum(m, fold_momentum)
-    _bil.check_operands(g, a, b, *ms, widths=(d_in, d_out, (d_in, d_out)))
-    lib = build.library('eva_fused', _SIGNATURES)
-    out = torch.empty((L, d_in, d_out), dtype=torch.float32, device=g.device)
-    chunks = _bil.n_chunks(d_in, d_out)
-    aux_partials = torch.empty((L, chunks, 3), dtype=torch.float32,
-                               device=g.device)
-    with torch.cuda.device(g.device):
-        dot, sq = _bil.launch_dot(g, a, b)
-        sc = _scalars(gamma + sq[:, 0] * sq[:, 1], gamma, mu)
-        build.check(lib, lib.repro_eva_fused_emit(
-            g.data_ptr(), int(g.dtype == torch.bfloat16), a.data_ptr(),
-            b.data_ptr(), sc.data_ptr(), dot.data_ptr(), m_ptr,
-            out.data_ptr(), aux_partials.data_ptr(), L, d_in, d_out,
-            int(fold_momentum),
-            torch.cuda.current_stream(g.device).cuda_stream),
-            'eva_fused emit launch')
-        aux = _bil.sum_partials(aux_partials)
+    if ms:
+        launch.check_f32(m, (L, d_in, d_out), index)
+    if d_in * d_out >= 2 ** 31:
+        raise ValueError(f'{d_in}x{d_out} item exceeds 32-bit indexing')
+    ws = launch.workspace(index)
+    scratch, counters = ws.reserve(L * eva_fused_plan(d_in, d_out)[3], L)
+    # the allocations that cost the host least: g is contiguous, a is f32
+    out = torch.empty_like(g, dtype=torch.float32)
+    aux = a.new_empty((L, 3))
+    launch.call(launch.entry('eva_fused', 'repro_eva_fused', _SIGNATURES),
+                index, 'eva_fused launch', g.data_ptr(),
+                g.dtype is torch.bfloat16, a.data_ptr(), b.data_ptr(), m_ptr,
+                out.data_ptr(), aux.data_ptr(), scratch, ws.n_f32, counters,
+                ws.n_i32, gamma, 1.0 / gamma, mu, fold_momentum, L, d_in,
+                d_out)
     launches.COUNTS['eva_fused'] += 1
     return out, aux
 
@@ -100,7 +133,8 @@ def eva_f_fused_stacked(g: torch.Tensor, a: torch.Tensor, gamma: float,
     aux_partials = torch.empty((L, chunks, 3), dtype=torch.float32,
                                device=g.device)
     with torch.cuda.device(g.device):
-        u, asq = _mv.launch_matvec(g, a)
+        u, asq = _mv.split(_mv.launch_matvec(g, a, L, d_in, d_out,
+                                             g.get_device()), L, d_out)
         sc = _scalars(gamma + asq, gamma, mu)
         build.check(lib, lib.repro_eva_f_fused_emit(
             g.data_ptr(), int(g.dtype == torch.bfloat16), a.data_ptr(),

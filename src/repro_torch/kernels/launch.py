@@ -1,4 +1,5 @@
-"""The lean launch path of the ``rank1_update`` and ``matvec_cols`` wrappers.
+"""The lean launch path of the ``rank1_update``, ``matvec_cols``, ``matvec``
+and ``eva_fused`` wrappers, and the per-device workspace of ``eva_fused``.
 
 A wrapper's host work is part of every step: the rank-one update runs in a
 few microseconds on the card, so building a ``torch.cuda.Stream`` object,
@@ -9,6 +10,21 @@ context is entered only when the operand lies on another card than the
 current one.  The checks are the ones the kernels need and no more, each a
 single test on the common path; only a failed test works out which rule
 was broken.
+
+The workspace holds the scratch of ``csrc/eva_fused.cu``: f32 partials
+that pass from its first launch to its second, and the int32 arrival
+counters with which the second finishes its sums inside the launch.  The
+kernels leave every counter at 0, so the counters are zeroed once, when the
+workspace grows, and never again.  It grows to the largest call seen and
+never shrinks.  Two rules follow, and the wrapper's docstring repeats
+them:
+
+  * one stream per device: two streams using one device's workspace at
+    once would share partials and counters;
+  * a CUDA graph captures the workspace's pointers, so it must have grown
+    to the captured calls' shapes before capture (an eager call of the same
+    shapes does it); growth during capture raises.  A graph captured before
+    a later growth still replays: the buffers it points at are kept.
 """
 from __future__ import annotations
 
@@ -82,3 +98,45 @@ def check_f32(v: torch.Tensor, shape: tuple, index: int,
     if v.get_device() != index:
         raise ValueError(f'operand on {v.device}, g on cuda:{index}')
     raise ValueError('per-item operands must be contiguous')
+
+
+class Workspace:
+    """The scratch of one device: ``n_f32`` f32 values and ``n_i32`` int32
+    counters, zero whenever no kernel runs."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self.n_f32 = self.n_i32 = 0
+        self.ptrs = (0, 0)
+        self.buffers: list[torch.Tensor] = []   # current and retired
+
+    def reserve(self, n_f32: int, n_i32: int) -> tuple[int, int]:
+        """Pointers to at least ``n_f32`` f32 values and ``n_i32`` zeroed
+        counters, grown first if needed."""
+        if n_f32 > self.n_f32 or n_i32 > self.n_i32:
+            self._grow(max(n_f32, self.n_f32), max(n_i32, self.n_i32))
+        return self.ptrs
+
+    def _grow(self, n_f32: int, n_i32: int) -> None:
+        if (self.device.type == 'cuda'
+                and torch.cuda.is_current_stream_capturing()):
+            raise RuntimeError(
+                f'the kernel workspace of {self.device} must grow to '
+                f'{n_f32} f32 values and {n_i32} counters during CUDA graph '
+                'capture: run the captured calls once eagerly before capture')
+        f32 = torch.empty(n_f32, dtype=F32, device=self.device)
+        i32 = torch.zeros(n_i32, dtype=torch.int32, device=self.device)
+        self.buffers += [f32, i32]
+        self.n_f32, self.n_i32 = n_f32, n_i32
+        self.ptrs = (f32.data_ptr(), i32.data_ptr())
+
+
+_workspaces: dict[int, Workspace] = {}
+
+
+def workspace(index: int) -> Workspace:
+    """The workspace of CUDA device ``index``."""
+    ws = _workspaces.get(index)
+    if ws is None:
+        ws = _workspaces[index] = Workspace(torch.device('cuda', index))
+    return ws

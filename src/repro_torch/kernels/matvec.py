@@ -4,82 +4,101 @@
 Counterpart of ``repro/kernels/matvec.py``.  ``matvec_and_norm_stacked``
 (``::matvec``, ``::matvec_stacked``) takes g (L, d_in, d_out) f32|bf16 and
 a (L, d_in) f32 and returns u (L, d_out) f32 and ‖a‖² (L,) f32, both summed
-on the card in a fixed order.  ``matvec_cols_stacked`` (``::matvec_cols``,
-``::matvec_cols_stacked``) takes a row band g (L, m, n) f32|bf16 of L
-symmetric factors and a (L, R, m) f32 and returns the band partials
-A·G (L, R, n) f32 of the factor-sharded solve.  The unstacked forms run one
-matrix as a stack of one.  The wrappers take CUDA tensors only and raise on
-any other (``dispatch.py`` routes CPU tensors to the plain versions in
-``ref.py``).  Outputs and scratch come from ``torch.empty`` on the input's
-device; nothing synchronises.
+on the card in a fixed order, from one launch.  ``matvec_cols_stacked``
+(``::matvec_cols``, ``::matvec_cols_stacked``) takes a row band g (L, m, n)
+f32|bf16 of L symmetric factors and a (L, R, m) f32 and returns the band
+partials A·G (L, R, n) f32 of the factor-sharded solve.  The unstacked forms
+run one matrix as a stack of one.  The wrappers take CUDA tensors only and
+raise on any other (``dispatch.py`` routes CPU tensors to the plain versions
+in ``ref.py``); they go through the lean launch path of ``launch.py``.
+Nothing synchronises.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build, launch, launches
-from repro_torch.kernels.bilinear import check_operands
 
 _SIGNATURES = {
-    'repro_matvec_rows': [],
-    'repro_matvec_partials': [build.P, build.I32, build.P, build.P, build.I64,
-                              build.I64, build.I64, build.P],
-    'repro_matvec_finish': [build.P, build.P, build.P, build.P, build.I64,
-                            build.I64, build.I64, build.I64, build.P],
+    'repro_matvec': [build.P, build.I32, build.P, build.P, build.P,
+                     build.I64, build.I64, build.I64, build.I32, build.P],
 }
-
-
 _COLS_SIGNATURES = {
     'repro_matvec_cols': [build.I32, build.I32, build.P, build.I32, build.P,
                           build.P, build.I64, build.I64, build.I64, build.I64,
                           build.I32, build.I32, build.I64, build.I64, build.P],
 }
+_F32_BYTES = 4
+
+# The partition of csrc/matvec.cu: kMvCols columns a block, kMvRows rows a
+# chunk, kMvSub chunks a warp, at most kMvWarps warps a block
+MV_COLS, MV_ROWS, MV_SUB, MV_WARPS = 16, 16, 8, 8
 
 
-def _lib():
-    return build.library('matvec', _SIGNATURES)
+def matvec_plan(d_in: int, d_out: int) -> tuple[int, int]:
+    """(blocks, warps) per stack item of ``csrc/matvec.cu``: one block per
+    strip of MV_COLS columns, with a warp for every MV_SUB chunks of MV_ROWS
+    rows, up to MV_WARPS (more chunks take more rounds).  Depends on
+    (d_in, d_out) alone."""
+    chunks = -(-d_in // MV_ROWS)
+    return -(-d_out // MV_COLS), min(MV_WARPS, -(-chunks // MV_SUB))
 
 
-def launch_matvec(g: torch.Tensor, a: torch.Tensor
-                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch the partials kernel and the finishing launch on checked
-    operands: u (L, d_out) f32 and asq (L,) f32 = ‖a‖².
+def launch_matvec(g: torch.Tensor, a: torch.Tensor, L: int, d_in: int,
+                  d_out: int, index: int) -> torch.Tensor:
+    """Launch ``csrc/matvec.cu`` on checked operands: one flat f32 tensor
+    of L·d_out + L values, u (L, d_out) then ‖a‖² (L,).  Shared by the
+    matvec wrappers and the fused Eva-f kernel's first launch; it counts
+    nothing itself."""
+    out = torch.empty(L * d_out + L, dtype=torch.float32, device=g.device)
+    u = out.data_ptr()
+    launch.call(launch.entry('matvec', 'repro_matvec', _SIGNATURES), index,
+                'matvec launch', g.data_ptr(), g.dtype is torch.bfloat16,
+                a.data_ptr(), u, u + _F32_BYTES * L * d_out, L, d_in, d_out,
+                matvec_plan(d_in, d_out)[1])
+    return out
 
-    Shared by the matvec wrappers and the fused Eva-f kernel's first two
-    launches; it counts nothing itself."""
-    L, d_in, d_out = g.shape
-    lib = _lib()
-    chunks = -(-d_in // lib.repro_matvec_rows())
-    partials = torch.empty((L, chunks, d_out), dtype=torch.float32,
-                           device=g.device)
-    u = torch.empty((L, d_out), dtype=torch.float32, device=g.device)
-    asq = torch.empty((L,), dtype=torch.float32, device=g.device)
-    stream = torch.cuda.current_stream(g.device).cuda_stream
-    build.check(lib, lib.repro_matvec_partials(
-        g.data_ptr(), int(g.dtype == torch.bfloat16), a.data_ptr(),
-        partials.data_ptr(), L, d_in, d_out, stream), 'matvec partials launch')
-    build.check(lib, lib.repro_matvec_finish(
-        partials.data_ptr(), a.data_ptr(), u.data_ptr(), asq.data_ptr(), L,
-        chunks, d_in, d_out, stream), 'matvec finish launch')
-    return u, asq
+
+def split(out: torch.Tensor, L: int, d_out: int, stacked: bool = True
+          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """u and ‖a‖² as two contiguous views of :func:`launch_matvec`'s flat
+    output ((L, d_out) and (L,), or (d_out,) and () unstacked), since
+    rank1_update takes u as its b operand.  ``as_strided`` is the view that
+    costs the host least."""
+    n = L * d_out
+    if stacked:
+        return out.as_strided((L, d_out), (d_out, 1)), \
+            out.as_strided((L,), (1,), n)
+    return out.as_strided((d_out,), (1,)), out.as_strided((), (), n)
+
+
+def _launch(g, a, L: int, d_in: int, d_out: int, lead, index: int):
+    launch.check_f32(a, lead + (d_in,), index)
+    if d_in * d_out >= 2 ** 31:
+        raise ValueError(f'{d_in}x{d_out} item exceeds 32-bit indexing')
+    out = launch_matvec(g, a, L, d_in, d_out, index)
+    launches.COUNTS['matvec'] += 1
+    return split(out, L, d_out, bool(lead))
 
 
 def matvec_and_norm_stacked(g: torch.Tensor, a: torch.Tensor
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Stacked u_l = a_lᵀ G_l -> (L, d_out) f32, and ‖a_l‖² -> (L,) f32,
-    from one launch pair.  The norm feeds Eq. 21's denominator; summed in a
+    from one launch.  The norm feeds Eq. 21's denominator; summed in a
     fixed order, it is the same for an item alone or in a stack, as u is."""
-    check_operands(g, a, widths=(g.shape[1],))
-    with torch.cuda.device(g.device):
-        out = launch_matvec(g, a)
-    launches.COUNTS['matvec'] += 1
-    return out
+    index = launch.check_g(g, 3)
+    L, d_in, d_out = g.shape
+    if L < 1 or L > 65535:
+        raise ValueError(f'stack size L={L} outside [1, 65535]')
+    return _launch(g, a, L, d_in, d_out, (L,), index)
 
 
-def matvec_and_norm(g, a):
+def matvec_and_norm(g: torch.Tensor, a: torch.Tensor
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
     """Unstacked form: g (d_in, d_out) -> u (d_out,) f32, asq () f32."""
-    u, asq = matvec_and_norm_stacked(g[None], a[None])
-    return u[0], asq[0]
+    index = launch.check_g(g, 2)
+    d_in, d_out = g.shape
+    return _launch(g, a, 1, d_in, d_out, (), index)
 
 
 # Tile shapes of csrc/matvec_cols.cu, by its config index: (TM, TN, TY, TX)

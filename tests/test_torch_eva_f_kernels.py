@@ -19,7 +19,7 @@ torch = pytest.importorskip('torch')
 import numpy as np  # noqa: E402
 
 from test_torch_kernels import (BLOCK, DTYPES, GAMMA, MU, SHAPES,  # noqa: E402
-                                TOL, _mk)
+                                TOL, _mk, _repeats_and_replays, _same_bits)
 
 from repro.kernels import fused as jfused  # noqa: E402
 from repro.kernels import matvec as jmv  # noqa: E402
@@ -163,4 +163,44 @@ def test_eva_f_kernels_match_plain_on_card(shape):
         o1, _ = fused.eva_f_fused_stacked(g[sl], a[sl], GAMMA, m[sl], MU,
                                           False)
         assert torch.equal(o1, out[sl])
+    launches.reset()
+
+
+@pytest.mark.parametrize('shape', [(784, 1000), (1000, 784), (250, 30),
+                                   (30, 250), (129, 127), (1000, 513),
+                                   (3000, 2)])
+def test_matvec_plan(shape):
+    """The matvec partition depends on (d_in, d_out) alone: one block per
+    strip of MV_COLS columns, a warp for every MV_SUB chunks of MV_ROWS
+    rows, at most MV_WARPS warps a block (more chunks take more rounds)."""
+    d_in, d_out = shape
+    blocks, warps = mv.matvec_plan(d_in, d_out)
+    assert (blocks - 1) * mv.MV_COLS < d_out <= blocks * mv.MV_COLS
+    chunks = -(-d_in // mv.MV_ROWS)
+    assert 1 <= warps <= mv.MV_WARPS
+    assert warps == mv.MV_WARPS or (warps - 1) * mv.MV_SUB < chunks
+    assert warps * mv.MV_SUB >= min(chunks, mv.MV_WARPS * mv.MV_SUB)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', [(3, 1000, 1000), (2, 129, 127)])
+def test_matvec_stacked_repeats_and_replays_on_card(shape, dtype):
+    """The one-launch matvec: u within 1e-5 of each column's scale and ‖a‖²
+    within rtol 1e-5 of the plain version, a stack equal to its items and
+    to the unstacked form bit for bit, and repeated calls and graph replays
+    the same bits (needs a card and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    _, (g, a, _, _) = _mk(shape[1:], dtype, shape[:1], seed=12)
+    g, a = g.cuda(), a.cuda()
+    u, asq = _repeats_and_replays(lambda: mv.matvec_and_norm_stacked(g, a))
+    assert torch.all((u - ref.matvec_ref(g, a)).abs()
+                     <= 1e-5 * ref.matvec_ref(g.abs(), a.abs()))
+    torch.testing.assert_close(asq, (a * a).sum(-1), atol=0, rtol=1e-5)
+    for i in range(shape[0]):
+        sl = slice(i, i + 1)
+        assert _same_bits(mv.matvec_and_norm_stacked(g[sl], a[sl]),
+                          (u[sl], asq[sl]))
+        assert _same_bits(mv.matvec_and_norm(g[i], a[i]), (u[i], asq[i]))
     launches.reset()

@@ -21,7 +21,7 @@ from repro.kernels import bilinear as jbil  # noqa: E402
 from repro.kernels import fused as jfused  # noqa: E402
 from repro.kernels import rank1_update as jr1  # noqa: E402
 from repro_torch.kernels import bilinear as bil  # noqa: E402
-from repro_torch.kernels import dispatch, launches, ref  # noqa: E402
+from repro_torch.kernels import dispatch, launch, launches, ref  # noqa: E402
 from repro_torch.kernels import fused  # noqa: E402
 from repro_torch.kernels import matvec as mv  # noqa: E402
 from repro_torch.kernels import rank1_update as r1  # noqa: E402
@@ -190,14 +190,59 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
                                     torch.ones(())),
     lambda g, a, b: mv.matvec_cols_stacked(g, a[:, None]),
     lambda g, a, b: mv.matvec_cols(g[0], a[:2]),
+    lambda g, a, b: mv.matvec_and_norm_stacked(g, a),
+    lambda g, a, b: mv.matvec_and_norm(g[0], a[0]),
+    lambda g, a, b: fused.eva_fused_stacked(g, a, b, GAMMA, None, MU, False),
 ], ids=['rank1_update_stacked', 'rank1_update', 'matvec_cols_stacked',
-        'matvec_cols'])
+        'matvec_cols', 'matvec_and_norm_stacked', 'matvec_and_norm',
+        'eva_fused_stacked'])
 def test_lean_wrappers_refuse_wrong_dtypes(wrapper, dtype):
     """The lean launch path takes g in f32 or bf16 only, whatever its
     device."""
     _, (g, a, b, _) = _mk((64, 48), 'float32', (3,), seed=3)
     with pytest.raises(TypeError, match='float32 or bfloat16'):
         wrapper(g.to(dtype), a, b)
+
+
+@pytest.mark.parametrize('shape', [(784, 1000), (1000, 784), (250, 30),
+                                   (30, 250), (129, 127), (1000, 513),
+                                   (3000, 2)])
+def test_eva_fused_plan(shape):
+    """The two launches' partition depends on (d_in, d_out) alone: launch
+    1 covers the rows in whole-row blocks of about EF_TILE elements,
+    launch 2 the flattened item in EF_TILE chunks; the scratch holds the
+    two norms and both launches' partials."""
+    d_in, d_out = shape
+    rows, dot_blocks, emit_blocks, scratch = fused.eva_fused_plan(d_in, d_out)
+    assert rows >= 1 and (rows == 1 or rows * d_out <= fused.EF_TILE)
+    assert (dot_blocks - 1) * rows < d_in <= dot_blocks * rows
+    assert ((emit_blocks - 1) * fused.EF_TILE < d_in * d_out
+            <= emit_blocks * fused.EF_TILE)
+    assert scratch == 2 + dot_blocks + 3 * emit_blocks
+    if shape == (784, 1000):
+        # at least four blocks on each of an H100's 132 SMs
+        assert min(dot_blocks, emit_blocks) >= 4 * mv.H100_SMS
+
+
+def test_workspace_grows_and_never_shrinks():
+    """The workspace grows to the largest call seen, across calls of mixed
+    shapes and stack sizes, keeps its buffers when nothing grows, and hands
+    out zeroed counters."""
+    ws = launch.Workspace(torch.device('cpu'))
+    seen, growths = (0, 0), 0
+    for L, d_in, d_out in [(1, 250, 30), (1, 784, 1000), (3, 129, 127),
+                           (1, 30, 250), (3, 1000, 1000), (1, 784, 1000)]:
+        need = (L * fused.eva_fused_plan(d_in, d_out)[3], L)
+        before = ws.ptrs
+        ptrs = ws.reserve(*need)
+        grew = need[0] > seen[0] or need[1] > seen[1]
+        growths += grew
+        seen = (max(seen[0], need[0]), max(seen[1], need[1]))
+        assert (ws.n_f32, ws.n_i32) == seen
+        assert (ptrs != before) == grew
+        assert not ws.buffers[-1].any()
+    # buffers that graphs may still point at are kept
+    assert growths == 4 and len(ws.buffers) == 2 * growths
 
 
 def test_dispatch_rejects_unknown_impl():
@@ -255,4 +300,50 @@ def test_rank1_update_misaligned_on_card(shape, dtype):
     p = r1.rank1_update(g, a, b, c, s)
     assert torch.equal(p, ref.rank1_update_ref(g, a, b, c, s))
     assert torch.equal(r1.rank1_update(g, a, b, torch.stack([c, s])), p)
+    launches.reset()
+
+
+def _same_bits(got, want):
+    return all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+def _repeats_and_replays(fn):
+    """Three calls of ``fn`` in a row, then a CUDA graph of one call
+    replayed three times: each gives the first call's bits (eva_fused's
+    kernel keeps its arrival counters at zero).  The eager calls grow the
+    workspace before the capture."""
+    want = [x.clone() for x in fn()]
+    for _ in range(2):
+        assert _same_bits(fn(), want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = fn()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert _same_bits(outs, want)
+    return want
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('fold', [False, True])
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', [(3, 1000, 1000), (2, 129, 127)])
+def test_eva_fused_stacked_repeats_and_replays_on_card(shape, dtype, fold):
+    """The two-launch fused kernel: a stack equals its items bit for bit
+    (the second item of 2 x 129 x 127 sits 4 bytes off a 16-byte
+    boundary), and repeated calls and graph replays give the same bits
+    (needs a card and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    _, (g, a, b, m) = _mk(shape[1:], dtype, shape[:1], seed=11)
+    g, a, b, m = (x.cuda() for x in (g, a, b, m))
+    m = m if fold else None
+    out, aux = _repeats_and_replays(
+        lambda: fused.eva_fused_stacked(g, a, b, GAMMA, m, MU, fold))
+    for i in range(shape[0]):
+        sl = slice(i, i + 1)
+        assert _same_bits(fused.eva_fused_stacked(
+            g[sl], a[sl], b[sl], GAMMA, None if m is None else m[sl], MU,
+            fold), (out[sl], aux[sl]))
     launches.reset()
