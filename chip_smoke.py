@@ -14,20 +14,21 @@ Phases; any failure stops the run with a non-zero exit:
               eva_f_fused) against its plain PyTorch version at the
               autoencoder's layer shapes, two stacks and two ragged shapes,
               f32 and bf16; stacked against per-item bit for bit; each fused
-              kernel with ``fold_momentum=False`` against its composed
-              kernels.  rank1_update bit for bit, from the (L, 2) pairs and
+              kernel with ``fold_momentum=False`` against its composed op
+              (``ops.eva_precondition``, ``ops.eva_f_precondition``) bit for
+              bit in f32.  rank1_update bit for bit, from the (L, 2) pairs and
               from two coefficient tensors alike, also on a G one element
               past a 16-byte boundary.  matvec_cols on the reference test's
               band shapes, the autoencoder's 784 and 500 x 1000 x 1000 and a
               37 x 129 x 131 stack aligned in neither operand, f32 and bf16:
               against its plain version, its W=2 and W=4 band partials
               summed against the float64 product, stacked against per item
-              bit for bit.  matvec and eva_fused (both folds): three calls
-              in a row, and a CUDA graph of one call replayed three times,
-              give the first call's bits (eva_fused's kernel keeps its
-              arrival counters at zero), f32 and bf16, on 784 x 1000, 3 x
-              1000 x 1000 and 2 x 129 x 127; capturing a call that would
-              grow the kernel workspace raises.
+              bit for bit.  bilinear, matvec, eva_fused and eva_f_fused
+              (both folds): three calls in a row, and a CUDA graph of one
+              call replayed three times, give the first call's bits (the
+              kernels keep their arrival counters at zero), f32 and bf16, on
+              784 x 1000, 3 x 1000 x 1000 and 2 x 129 x 127; capturing a
+              call that would grow its stream's workspace raises.
 4. main     — the paper's full-width autoencoder
               (784-1000-500-250-30-250-500-1000-784, batch 1000) trained by
               Eva, Eva-f and Eva-s, 20 steps composed and 20 fused each,
@@ -44,7 +45,12 @@ Phases; any failure stops the run with a non-zero exit:
               20 fused each, held to the plain path (``impl='torch'``) as in
               phase 4, 128 matvec_cols launches per step; then 20 dense
               steps of each (no hand kernel) and how far the first shard
-              step lies from the dense one.
+              step lies from the dense one; then 10 shard steps of each
+              refreshing every 10 steps beside every step: held to the
+              plain path, the host-clock ms of each step, and the device
+              kernels of the refresh and a skip step (no dense inverse or
+              eigh in the skip step; Shampoo's skip steps at least 25 ms
+              below its every-step median).
 5. stacked  — a few Eva, Eva-f and K-FAC (sharded) steps of MLP
               784-1000-1000-1000-1000-10, whose three 1000x1000 layers form
               one stacked bucket.
@@ -53,8 +59,8 @@ Phases; any failure stops the run with a non-zero exit:
               and replayed from a CUDA graph, and the host µs per call of the
               kernel's wrapper and the library call; the device launches of
               one wrapper call (the profiler's kernels, all and the port's
-              own: 1 for matvec, 2 for eva_fused, 3 port kernels for
-              eva_f_fused); the launch floor (an
+              own: 2 for eva_fused and eva_f_fused, 1 for the others, and
+              no PyTorch kernel); the launch floor (an
               empty kernel); rank1_update on its largest layer alone; the
               step times of each optimizer, the forward + backward alone,
               and a torch.profiler breakdown of each step.
@@ -89,13 +95,13 @@ FUSED_TOL = 1e-6                            # tests/test_fused.py
 TRAJ_RTOL = 1e-4                            # cuda vs torch loss, per step
 PARAM_RTOL = 1e-4                           # cuda vs torch, a leaf's step
 # kernel -> (the port's device launches a wrapper call, all device launches
-# a call, None: not held): one for matvec, two for eva_fused, and no
-# PyTorch kernel beside them; eva_f_fused's wrapper forms its scalars with
-# PyTorch ops between matvec and its emit kernel, and sums aux with
-# bilinear.cu's kernel
-DEVICE_LAUNCHES = {'bilinear': (2.0, 2.0), 'rank1_update': (1.0, 1.0),
+# a call): one for bilinear, rank1_update, matvec and matvec_cols, two for
+# eva_fused and eva_f_fused (the second a programmatic dependent of the
+# first), and no PyTorch kernel beside them: every wrapper takes the lean
+# launch path of kernels/launch.py
+DEVICE_LAUNCHES = {'bilinear': (1.0, 1.0), 'rank1_update': (1.0, 1.0),
                    'eva_fused': (2.0, 2.0), 'matvec': (1.0, 1.0),
-                   'eva_f_fused': (3.0, None), 'matvec_cols': (1.0, 1.0)}
+                   'eva_f_fused': (2.0, 2.0), 'matvec_cols': (1.0, 1.0)}
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 F32_FLOPS = 67e12                           # H100 SXM f32, no tensor cores
 STEPS = 20
@@ -120,6 +126,14 @@ SOLVER_PATHS = {
     'kfac': (0.15, dict(SHARD, solver='cg')),
     'shampoo': (0.3, dict(SHARD, solver='binomial')),
 }
+# the paper's kfac@10 and shampoo@10: a refresh every INTERVAL steps; the
+# steps between skip the twelve dense sides' inverses (K-FAC: cuBLAS's LU
+# and triangular solves) or eigh (Shampoo: cuSOLVER's Jacobi and divide and
+# conquer, about 51 ms of its device time a step), whose kernels carry these
+# names; Shampoo's skip steps must save at least half of that
+INTERVAL = 10
+DENSE_REFRESH_KERNELS = ('getrf', 'trsm', 'syev', 'sytrd', 'stedc')
+INTERVAL_SAVING_MS = 25.0
 
 
 def fail(msg: str):
@@ -254,17 +268,17 @@ def kernels_phase(torch):
             o0, x0 = fused.eva_fused_stacked(g, a, b, GAMMA, None, MU, False)
             require(torch.equal(o0, out) and torch.equal(x0, aux),
                     f'eva_fused m=None != m given {tag}')
-            # fused (fold off) against the composed kernels; in f32 only,
-            # since the composed P is rounded to G's dtype
+            # fused (fold off) against composed Eva (bilinear, PyTorch's
+            # coeff = dot / (γ + ‖a‖²‖b‖²), rank1_update): the same bits,
+            # since bilinear finishes eva_fused's dot and norms in its order;
+            # in f32 only, since the composed P is rounded to G's dtype
             ec = torch.zeros(())
             if name == 'float32':
-                comp = r1.rank1_update_stacked(g, a, b,
-                                               _cs(torch, g, a, b, dot))
-                ec = (GAMMA * out - GAMMA * comp).abs()
-                require(bool((ec <= FUSED_TOL + FUSED_TOL *
-                              (GAMMA * comp).abs()).all()),
-                        f'eva_fused vs composed {tag}: err '
-                        f'{ec.max().item():.3e}')
+                comp = ops.eva_precondition(g, a, b, GAMMA, impl='cuda')
+                ec = (out - comp).abs()
+                require(torch.equal(out, comp),
+                        f'eva_fused (fold off) vs composed Eva {tag}: err '
+                        f'{ec.max().item():.3e}, not the same bits')
             # stacked ≡ per item, bit for bit
             if shape[0] > 1:
                 out_s, aux_s = fused.eva_fused_stacked(g, a, b, GAMMA, m, MU,
@@ -348,9 +362,9 @@ def _rank1_offset_checks(torch):
 
 
 def _capture(torch, fn):
-    """A CUDA graph of one call of ``fn``, after three eager calls on a side
-    stream (which also grow the kernel workspace), and the graph's
-    outputs."""
+    """A CUDA graph of one call of ``fn`` and the graph's outputs: three
+    eager calls on a side stream, which grow that stream's kernel
+    workspace, then the capture on the same stream."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -358,17 +372,19 @@ def _capture(torch, fn):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         outs = fn()
     return graph, outs
 
 
 def _repeat_and_replay_checks(torch):
-    """matvec and eva_fused, the kernels redesigned to one and two
-    launches: three calls in a row, and a CUDA graph of one call replayed
-    three times, each give the first call's bits (so eva_fused's arrival
-    counters are back at zero after every call).  Then a capture that
-    would grow the workspace raises."""
+    """The kernels redesigned to one or two launches (bilinear, matvec,
+    eva_fused, eva_f_fused): three calls in a row, and a CUDA graph of one
+    call replayed three times, each give the first call's bits (so the
+    arrival counters are back at zero after every call).  Then a capture
+    that would grow a stream's workspace raises, for each kernel that
+    takes one."""
+    from repro_torch.kernels import bilinear as bil
     from repro_torch.kernels import fused, launch
     from repro_torch.kernels import matvec as mv
     for seed, shape in enumerate([(1, 784, 1000), (3, 1000, 1000),
@@ -377,11 +393,16 @@ def _repeat_and_replay_checks(torch):
             g, a, b, m = _inputs(torch, shape, dtype, 80 + seed)
             tag = f'{"x".join(map(str, shape))} {str(dtype).rsplit(".", 1)[-1]}'
             calls = {
+                'bilinear': lambda: bil.bilinear_and_norms_stacked(g, a, b),
                 'matvec': lambda: mv.matvec_and_norm_stacked(g, a),
                 'eva_fused': lambda: fused.eva_fused_stacked(
                     g, a, b, GAMMA, m, MU, True),
                 'eva_fused fold=False': lambda: fused.eva_fused_stacked(
                     g, a, b, GAMMA, None, MU, False),
+                'eva_f_fused': lambda: fused.eva_f_fused_stacked(
+                    g, a, GAMMA, m, MU, True),
+                'eva_f_fused fold=False': lambda: fused.eva_f_fused_stacked(
+                    g, a, GAMMA, None, MU, False),
             }
             for name, fn in calls.items():
                 first = [x.clone() for x in fn()]
@@ -396,23 +417,38 @@ def _repeat_and_replay_checks(torch):
                     require(all(torch.equal(x, y) for x, y in
                                 zip(outs, first)),
                             f'{name} {tag}: graph replay {i + 1} != call 1')
-            print(f'  ok {tag}: matvec, eva_fused: 3 calls and 3 graph '
+            print(f'  ok {tag}: {", ".join(calls)}: 3 calls and 3 graph '
                   f'replays bit for bit', flush=True)
-    # a capture that would grow the workspace raises, and leaves it as it was
+    # a capture that would grow its stream's workspace raises, and leaves
+    # the workspace as it was; each capture takes a stream of its own
     index = torch.cuda.current_device()
-    kept = launch._workspaces.pop(index, None)
     g, a, b, m = _inputs(torch, (1, 250, 30), torch.float32, 89)
-    graph = torch.cuda.CUDAGraph()
-    try:
-        with torch.cuda.graph(graph):
-            fused.eva_fused_stacked(g, a, b, GAMMA, m, MU, True)
-        fail('a capture that grows the kernel workspace did not raise')
-    except RuntimeError as e:
-        require('before capture' in str(e), f'capture growth raised {e!r}')
-    finally:
-        if kept is not None:
-            launch._workspaces[index] = kept
-    print('  ok: growing the workspace during capture raises', flush=True)
+    growers = {
+        'bilinear': lambda: bil.bilinear_and_norms_stacked(g, a, b),
+        'eva_fused': lambda: fused.eva_fused_stacked(g, a, b, GAMMA, m, MU,
+                                                     True),
+        'eva_f_fused': lambda: fused.eva_f_fused_stacked(g, a, GAMMA, m, MU,
+                                                         True),
+    }
+    for name, fn in growers.items():
+        side = torch.cuda.Stream()
+        key = (index, side.cuda_stream)
+        kept = launch._workspaces.pop(key, None)
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, stream=side):
+                fn()
+            fail(f'{name}: a capture that grows the kernel workspace did not '
+                 'raise')
+        except RuntimeError as e:
+            require('before capture' in str(e),
+                    f'{name}: capture growth raised {e!r}')
+        finally:
+            launch._workspaces.pop(key, None)
+            if kept is not None:
+                launch._workspaces[key] = kept
+    print(f'  ok: growing the workspace during capture raises '
+          f'({", ".join(growers)})', flush=True)
 
 
 def _matvec_cols_checks(torch, rmn, dtype, seed):
@@ -464,7 +500,7 @@ def _eva_f_checks(torch, g, a, m, tag, float32):
     rank1_update kernels, and stacked against per item bit for bit.
     Returns matvec's max abs error and its largest ratio to the column
     scale, the fused output's max abs error against the plain version, and
-    (f32) its max error against the composed kernels on γ·out."""
+    (f32) its max abs difference from composed Eva-f, held to 0."""
     from repro_torch.kernels import fused, ops, ref
     from repro_torch.kernels import matvec as mv
     # matvec: each column held against its own scale Σ|a_i g_ij|
@@ -495,16 +531,17 @@ def _eva_f_checks(torch, g, a, m, tag, float32):
     require(torch.equal(o0, outs[False][0]) and
             torch.equal(x0, outs[False][1]),
             f'eva_f_fused m=None != m given {tag}')
-    # fold off against the composed kernels; in f32 only, since the
-    # composed P is rounded to G's dtype
+    # fold off against composed Eva-f (matvec, PyTorch's c = 1 / (γ +
+    # ‖a‖²), rank1_update): the same bits, since the emit kernel rounds c
+    # and each element as those do; in f32 only, since the composed P is
+    # rounded to G's dtype
     e_comp = 0.0
     if float32:
         comp = ops.eva_f_precondition(g, a, GAMMA, impl='cuda')
-        ec = (GAMMA * outs[False][0] - GAMMA * comp).abs()
-        require(bool((ec <= FUSED_TOL + FUSED_TOL *
-                      (GAMMA * comp).abs()).all()),
-                f'eva_f_fused vs composed {tag}: err {ec.max().item():.3e}')
-        e_comp = ec.max().item()
+        e_comp = (outs[False][0] - comp).abs().max().item()
+        require(torch.equal(outs[False][0], comp),
+                f'eva_f_fused (fold off) vs composed Eva-f {tag}: err '
+                f'{e_comp:.3e}, not the same bits')
     for i in range(g.shape[0] if g.shape[0] > 1 else 0):
         sl = slice(i, i + 1)
         u1, asq1 = mv.matvec_and_norm_stacked(g[sl], a[sl])
@@ -525,24 +562,25 @@ def _eva_f_checks(torch, g, a, m, tag, float32):
 # 4. the main path: full-width autoencoder, composed and fused
 
 
-def _make_opt(name, lr, fused, impl, shard=None):
+def _make_opt(name, lr, fused, impl, shard=None, interval=1):
     """(optimizer, capture, factor config): the rank-one optimizers take
     the kernel impl as ``kernel_impl``; K-FAC and Shampoo take it with the
-    sharded-factor config ``shard`` (None: every factor dense)."""
+    sharded-factor config ``shard`` (None: every factor dense), and
+    refresh their inverses or roots every ``interval`` steps."""
     from repro_torch.core.factor_sharded import FactorShardConfig
     from repro_torch.core.registry import make_optimizer
     if name in MAIN_PATHS:
         opt, cap = make_optimizer(name, lr=lr, fused=fused, kernel_impl=impl)
         return opt, cap, None
-    opt, cap = make_optimizer(name, lr=lr, fused=fused)
+    opt, cap = make_optimizer(name, lr=lr, fused=fused, interval=interval)
     return opt, cap, (None if shard is None
                       else FactorShardConfig(**shard, impl=impl))
 
 
 def _train(torch, model, params0, batches, *, fused, impl, lr, name='eva',
-           shard=None):
+           shard=None, interval=1):
     from repro_torch.train.step import init_opt_state, make_train_step
-    opt, cap, factor = _make_opt(name, lr, fused, impl, shard)
+    opt, cap, factor = _make_opt(name, lr, fused, impl, shard, interval)
     state = init_opt_state(model, opt, cap, params0, batches[0],
                            factor=factor, device='cuda')
     step = make_train_step(model, opt, cap, factor=factor, device='cuda')
@@ -850,7 +888,123 @@ def solver_phase(torch, model, params0, batches):
     print(json.dumps({'solver_losses': traj}))
     print(json.dumps({'solver_checks': info}))
     print(json.dumps({'solver_launches_per_step': per_step}))
+    i_counts = _interval_checks(torch, model, params0, batches)
+    counts = {k: counts[k] + i_counts[k] for k in counts}
     return counts, per_step
+
+
+def _dense_refresh_kernels(names):
+    """The kernels among ``names`` that belong to a dense inverse or eigh."""
+    return sorted(k for k in names
+                  if any(p in k.lower() for p in DENSE_REFRESH_KERNELS))
+
+
+def _step_device_kernels(torch, step, params, state, batch):
+    """{device kernel: launches} of one step, from the profiler, and the
+    step's outputs."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        params, state, _ = step(params, state, batch)
+        torch.cuda.synchronize()
+    return ({e.key: e.count for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA}, params, state)
+
+
+def _interval_checks(torch, model, params0, batches):
+    """K-FAC and Shampoo (shard) refreshing every INTERVAL steps beside
+    every step, INTERVAL steps each from the same start: the kernel path
+    within TRAJ_RTOL of the plain path per step, 128 matvec_cols launches a
+    step, each step's host-clock ms (ending in a synchronize); the
+    profiler's device kernels of the refresh step (step 0) and of a skip
+    step (step 1): the dense inverses or eigh in the first and none in the
+    second.  Shampoo's skip steps, whose twelve dense sides keep their
+    roots, are held to a median at least INTERVAL_SAVING_MS below the
+    every-step median of the same call.  Returns the launch counts."""
+    from repro_torch.kernels import launches
+    from repro_torch.train.step import init_opt_state, make_train_step
+    counts = {k: 0 for k in launches.COUNTS}
+    out = {}
+    run = batches[:INTERVAL]
+    for name, (lr, shard) in SOLVER_PATHS.items():
+        ms = {}
+        for interval in (1, INTERVAL):
+            opt, cap, factor = _make_opt(name, lr, False, 'auto', shard,
+                                         interval)
+            step = make_train_step(model, opt, cap, factor=factor,
+                                   device='cuda')
+            state = init_opt_state(model, opt, cap, params0, run[0],
+                                   factor=factor, device='cuda')
+            params, times, losses = params0, [], []
+            launches.reset()
+            for batch in run:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                params, state, met = step(params, state, batch)
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+                losses.append(met['loss'])
+            got = launches.snapshot()
+            want = {k: (128 * len(run) if k == 'matvec_cols' else 0)
+                    for k in launches.COUNTS}
+            require(got == want, f'{name} interval={interval}: launches '
+                    f'{got} != {want}')
+            for k, v in got.items():
+                counts[k] += v
+            losses = torch.stack(losses).cpu().tolist()
+            _finite_and_falling(losses, f'{name} interval={interval}')
+            ms[interval] = times
+            if interval == INTERVAL:
+                plain, *_ = _train(torch, model, params0, run, fused=False,
+                                   impl='torch', lr=lr, name=name,
+                                   shard=shard, interval=interval)
+                _compare_trajectories(losses, plain,
+                                      f'autoencoder {name} shard interval='
+                                      f'{interval}')
+                rel = max(abs(k - p) / abs(p) for k, p in zip(losses, plain))
+        # the device kernels of the refresh step and of a skip step
+        opt, cap, factor = _make_opt(name, lr, False, 'auto', shard, INTERVAL)
+        step = make_train_step(model, opt, cap, factor=factor, device='cuda')
+        state = init_opt_state(model, opt, cap, params0, run[0],
+                               factor=factor, device='cuda')
+        k_refresh, params, state = _step_device_kernels(torch, step, params0,
+                                                        state, run[0])
+        k_skip, _, _ = _step_device_kernels(torch, step, params, state,
+                                            run[1])
+        dense_refresh = _dense_refresh_kernels(k_refresh)
+        dense_skip = _dense_refresh_kernels(k_skip)
+        require(dense_refresh, f'{name}: no dense inverse or eigh kernel '
+                f'found in the refresh step: {sorted(k_refresh)}')
+        require(not dense_skip, f'{name}: the skip step launched {dense_skip}')
+        every = statistics.median(ms[1])
+        skip = statistics.median(ms[INTERVAL][1:])
+        out[name] = {
+            'every_step_ms': ms[1], 'interval_ms': ms[INTERVAL],
+            'every_step_median_ms': every, 'skip_median_ms': skip,
+            'refresh_step_ms': ms[INTERVAL][0],
+            'max_rel_loss_diff_to_plain': rel,
+            'refresh_step_device_kernels': sum(k_refresh.values()),
+            'skip_step_device_kernels': sum(k_skip.values()),
+            'refresh_step_dense_kernels': {k[:80]: k_refresh[k]
+                                           for k in dense_refresh},
+            'refresh_only_kernels': [k[:80] for k in sorted(
+                set(k_refresh) - set(k_skip))][:20],
+        }
+        print(f'  {name} shard interval={INTERVAL}: skip steps median '
+              f'{skip:.2f} ms, every-step median {every:.2f} ms, refresh '
+              f'step {ms[INTERVAL][0]:.2f} ms; device kernels refresh '
+              f'{sum(k_refresh.values())}, skip {sum(k_skip.values())}; '
+              f'dense refresh kernels only in the refresh step '
+              f'({len(dense_refresh)} names); max rel loss diff to plain '
+              f'{rel:.2e}', flush=True)
+        if name == 'shampoo':
+            require(skip <= every - INTERVAL_SAVING_MS,
+                    f'shampoo: skip steps median {skip:.2f} ms not '
+                    f'{INTERVAL_SAVING_MS} ms below the every-step median '
+                    f'{every:.2f} ms')
+    print(json.dumps({'solver_interval': out}))
+    return counts
 
 
 # ---------------------------------------------------------------------------

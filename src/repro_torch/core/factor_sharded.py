@@ -328,21 +328,22 @@ def init_head(stats: dict, policies: dict, cfg: FactorShardConfig,
         shard_bytes=scalar(shard_psum_bytes(plan, policies, cfg), dev))
 
 
-def refresh_head(refresh: torch.Tensor, stats: dict,
+def refresh_head(refresh: bool, stats: dict,
                  head: Optional[HeadState], policies: dict, gamma: float, *,
                  method: str) -> Optional[HeadState]:
     """Recompute the head buckets' dense-side operators and dampings under
-    the refresh decision (``torch.where`` on the 0-d device bool, as
-    ``schedule.runtime.sharded_refresh``).  ``stats``: {bucket_key: (m_in,
-    m_out)} live factor EMAs."""
+    the refresh decision on the host, as ``schedule.runtime.
+    sharded_refresh``: a step that keeps the old values computes nothing
+    and returns ``head`` as it is.  ``stats``: {bucket_key: (m_in, m_out)}
+    live factor EMAs."""
     if not policies:
         return None
+    if not refresh:
+        return head
     dense_op = _dense_op(method)
-    fresh = {k: _entry_shapes(policies[k], stats[k][0], stats[k][1], gamma,
-                       dense_op, method)
-             for k in policies}
-    buckets = tree_map(lambda f, o: torch.where(refresh, f, o), fresh,
-                       head.buckets)
+    buckets = {k: _entry_shapes(policies[k], stats[k][0], stats[k][1], gamma,
+                                dense_op, method)
+               for k in policies}
     return HeadState(buckets=buckets, solve_iters=head.solve_iters,
                      shard_bytes=head.shard_bytes)
 

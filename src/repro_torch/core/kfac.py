@@ -92,8 +92,11 @@ def kfac_preconditioner(gamma: float = 0.03, kf_decay: float = 0.95,
         fcfg = fsh.from_extras(extras)
         dense_plan, head_pol = fsh.split_plan(plan, fcfg)
         refresh, staleness = pol.decide(state.sched, stats)
+        # the dense sides are recomputed only on a refresh step, decided on
+        # the host once for the step
+        do_refresh = schedpol.on_host(pol, refresh)
         new = schedrt.sharded_refresh(
-            dense_plan, refresh, one,
+            dense_plan, do_refresh, one,
             {k: (st.a_outer, st.b_outer) for k, st in stats.items()
              if k not in head_pol},
             {k: (state.a_inv[k], state.b_inv[k]) for k in state.a_inv},
@@ -104,7 +107,7 @@ def kfac_preconditioner(gamma: float = 0.03, kf_decay: float = 0.95,
         # gate; the oversized side is applied matrix-free from the live EMA
         head_factors = {k: (stats[k].a_outer, stats[k].b_outer)
                         for k in head_pol}
-        head = fsh.refresh_head(refresh, head_factors, state.head, head_pol,
+        head = fsh.refresh_head(do_refresh, head_factors, state.head, head_pol,
                                 gamma, method='kfac')
         sched = schedpol.commit(pol, state.sched, stats, refresh, staleness)
 

@@ -105,8 +105,11 @@ def shampoo_preconditioner(gamma: float = 1e-4, eps_init: float = 1e-6,
 
         fcfg = fsh.from_extras(extras)
         dense_plan, head_pol = fsh.split_plan(plan, fcfg)
+        # the dense sides are recomputed only on a refresh step, decided on
+        # the host once for the step
+        do_refresh = schedpol.on_host(pol, refresh)
         new = schedrt.sharded_refresh(
-            dense_plan, refresh, one,
+            dense_plan, do_refresh, one,
             {k: (m_in[k], m_out[k]) for k in m_in if k not in head_pol},
             {k: (state.p_in[k], state.p_out[k]) for k in state.p_in},
             cost=ownership.inverse_cost('both'), shard=rt.shard_refresh)
@@ -116,7 +119,7 @@ def shampoo_preconditioner(gamma: float = 1e-4, eps_init: float = 1e-6,
         # matrix-free (binomial series for the −1/4 root) from the live
         # accumulator in factor_sharded
         head_factors = {k: (m_in[k], m_out[k]) for k in head_pol}
-        head = fsh.refresh_head(refresh, head_factors, state.head, head_pol,
+        head = fsh.refresh_head(do_refresh, head_factors, state.head, head_pol,
                                 gamma, method='shampoo')
         sched = schedpol.commit(pol, state.sched, accum, refresh, staleness)
 

@@ -1,31 +1,20 @@
 // Shared device code of the port's kernels.  matvec_cols.cu takes only the
-// type helpers (to_f32); the Eva kernels (bilinear.cu, rank1_update.cu,
-// eva_fused.cu, matvec.cu, eva_f_fused.cu) share the rest.  matvec.cu and
-// eva_fused.cu have partitions of their own (see their headers) and take
-// from here the reduction rules below, the block sum, the vector loads, the
-// warp norm and (eva_fused.cu) the last-block finish.
-//
-// Work partition of the Eva kernels.  Each cuts each stack item's flattened G
-// (d_in * d_out elements, row-major) into contiguous chunks of kChunk
-// elements and gives one block of kThreads threads to each (chunk, item)
-// pair: grid = (chunks, L).  Thread t of a block visits the chunk's elements
-// t, t + kThreads, t + 2 kThreads, ... so neighbouring threads read
-// neighbouring addresses.  The partition depends on d_in * d_out alone, never
-// on L, so an item of a stack is reduced exactly as it would be alone: the
-// stacked and per-item launches agree bit for bit.
+// type helpers (to_f32); the Eva kernels (rank1_update.cu, matvec.cuh and
+// the row-tile kernels of eva_tiles.cuh: eva_fused.cu, bilinear.cu,
+// eva_f_fused.cu) share the rest.  Each kernel has its own partition (see
+// its header) and takes from here the reduction rules below, the block sum,
+// the vector loads, the warp norm, rank1_elem and the last-block finish.
 //
 // Reductions are deterministic: a fixed warp-shuffle tree inside each warp,
-// then the warp sums in a fixed order, one f32 partial per block written to
-// scratch, and a second launch (repro_sum_partials) that sums each item's
-// partials in a fixed order.  No float atomics anywhere.
-//
-// eva_fused.cu's second launch finishes its reduction inside the launch
-// instead (last_arrival below): each block writes its partial, takes a
-// ticket from an integer arrival counter, and the block that draws the last
-// ticket sums the partials of its item in a fixed order.  The ticket only
-// picks which block sums; what is summed, and in which order, is fixed by
-// the partition, so the bits are those of a separate finishing launch.
-// Integer atomics are exact, and their order decides no value.
+// then the warp sums in a fixed order, and every partial summed in an order
+// that the partition fixes.  No float atomics anywhere.  A reduction across
+// blocks finishes inside its launch (last_arrival below): each block writes
+// its partial, takes a ticket from an integer arrival counter, and the block
+// that draws the last ticket sums the partials of its group in a fixed
+// order.  The ticket only picks which block sums; what is summed, and in
+// which order, is fixed by the partition, so the bits are those of a
+// separate finishing launch.  Integer atomics are exact, and their order
+// decides no value.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -34,9 +23,8 @@
 
 namespace repro {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 256;  // threads of a block that calls block_sum
 constexpr int kWarps = kThreads / 32;
-constexpr int kChunk = 8192;  // elements of one item per block (32 per thread)
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -96,42 +84,8 @@ __device__ __forceinline__ float rank1_elem(float g, float a_i, float b_j,
   return __fmul_rn(scale, __fsub_rn(g, __fmul_rn(coeff, __fmul_rn(a_i, b_j))));
 }
 
-// The emit body of the fused kernels over elements [start, end) of one item:
-// P = rank1_elem(...), out = mu * m + P (kFold) or P, written in f32, and the
-// block's [<out,G>, <out,out>, <G,G>] partial written to dst[0..2] by thread 0.
-// Every thread of the block must call it.
-template <typename T, bool kFold>
-__device__ __forceinline__ void emit_rank1_chunk(
-    const T* __restrict__ gl, const float* __restrict__ al,
-    const float* __restrict__ bl, float coeff, float scale, float mu,
-    const float* __restrict__ ml, float* __restrict__ ol, int start, int end,
-    int d_out, float* __restrict__ dst) {
-  float acc[3] = {0.0f, 0.0f, 0.0f};
-  for (int e = start + threadIdx.x; e < end; e += kThreads) {
-    const int i = e / d_out;
-    const int j = e - i * d_out;
-    const float gv = to_f32(gl[e]);
-    const float p = rank1_elem(gv, al[i], bl[j], coeff, scale);
-    const float o = kFold ? __fadd_rn(__fmul_rn(mu, ml[e]), p) : p;
-    ol[e] = o;
-    acc[0] += o * gv;
-    acc[1] += o * o;
-    acc[2] += gv * gv;
-  }
-  block_sum<3>(acc);
-  if (threadIdx.x == 0) {
-    dst[0] = acc[0];
-    dst[1] = acc[1];
-    dst[2] = acc[2];
-  }
-}
-
-inline int num_chunks(long long n, int chunk = kChunk) {
-  return static_cast<int>((n + chunk - 1) / chunk);
-}
-
 // ---------------------------------------------------------------------------
-// Vector loads and the last-block finish of matvec.cu and eva_fused.cu.
+// Vector loads and the last-block finish of matvec.cuh and eva_tiles.cuh.
 
 template <typename T>
 struct Bits;
@@ -186,9 +140,9 @@ __device__ __forceinline__ bool aligned(const void* p, int bytes) {
 }
 
 // |v|^2 over n values, summed by one warp: lane l adds v[l]^2, v[l + 32]^2,
-// ... in that order, then warp_sum; the total lands in lane 0.  The order of
-// bilinear.cu's finishing launch, with the loads issued kBatch at a time
-// (zeros past n: s + 0 * 0 is s, since s >= +0).
+// ... in that order, then warp_sum; the total lands in lane 0, with the
+// loads issued kBatch at a time (zeros past n: s + 0 * 0 is s, since
+// s >= +0).
 template <int kBatch>
 __device__ __forceinline__ float warp_sumsq(const float* __restrict__ v,
                                             int n) {

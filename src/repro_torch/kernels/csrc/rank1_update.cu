@@ -23,8 +23,7 @@
 // width a scalar tail; nothing is padded.  Where G and P sit at different
 // offsets from a 16-byte boundary the item runs scalar throughout.
 //
-// This kernel has its own partition and does not use common.cuh's kChunk:
-// it reduces nothing, so the partition cannot change a bit.  Every element
+// The partition reduces nothing, so it cannot change a bit.  Every element
 // is rank1_elem (common.cuh), the products rounded one at a time in the
 // reference's order, so P equals the plain PyTorch version bit for bit and
 // a stacked launch equals the per-item launches.

@@ -6,17 +6,15 @@ Counterpart of ``repro/kernels/fused.py::eva_fused_stacked`` and
 (L, 3) = [⟨out,G⟩, ⟨out,out⟩, ⟨G,G⟩], every sum in a fixed order, so an item
 alone and in a stack gets the same bits.
 
-``eva_fused_stacked`` is one C call of two launches on the current stream
-(see the ``.cu`` file): the first writes partial sums of aᵀGb and ‖a‖²,
-‖b‖², the second forms coeff = dot / (γ + ‖a‖²‖b‖²) in each of its blocks
-and writes out and aux.  γ, 1/γ and μ go to the kernels as f32 arguments;
-the scratch comes from the device's workspace (``launch.py``), through the
-lean launch path.
-
-``eva_f_fused_stacked`` runs three launches: ``matvec.cu`` gives u and
-‖a‖², the wrapper forms denom = γ + ‖a‖² and the [denom, 1/γ, μ] scalars on
-the device, the emit kernel writes out and one aux partial per block, and
-``bilinear.cu``'s fixed-order sum gives aux.
+Each is one C call of two launches on the current stream, with no PyTorch
+op between them (see the ``.cu`` files).  ``eva_fused_stacked``: the first
+writes partial sums of aᵀGb and ‖a‖², ‖b‖², the second forms coeff = dot /
+(γ + ‖a‖²‖b‖²) in each of its blocks and writes out and aux.
+``eva_f_fused_stacked``: the first is the ``matvec`` kernel (u = aᵀG and
+‖a‖²), the second forms coeff = 1 / (γ + ‖a‖²) in each of its blocks and
+writes out and aux with the same emit body.  γ, 1/γ and μ go to the kernels
+as f32 arguments; the scratch comes from the stream's workspace
+(``launch.py``), through the lean launch path.
 
 The emit kernels read m only when the momentum folds in: without the fold m
 may be None, and a null pointer takes its place.  CUDA tensors only:
@@ -28,7 +26,6 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import bilinear as _bil
 from repro_torch.kernels import build, launch, launches
 from repro_torch.kernels import matvec as _mv
 
@@ -40,13 +37,14 @@ _SIGNATURES = {
                         build.I64, build.P],
 }
 _F_SIGNATURES = {
-    'repro_eva_f_chunk_elems': [],
-    'repro_eva_f_fused_emit': [build.P, build.I32, build.P, build.P, build.P,
-                               build.P, build.P, build.P, build.I64,
-                               build.I64, build.I64, build.I32, build.P],
+    'repro_eva_f_fused': [build.P, build.I32, build.P, build.P, build.P,
+                          build.P, build.P, build.I64, build.P, build.I64,
+                          ctypes.c_float, ctypes.c_float, ctypes.c_float,
+                          build.I32, build.I64, build.I64, build.I64,
+                          build.I32, build.P],
 }
 
-# The partition of csrc/eva_fused.cu: kTile elements a block, about
+# The partition of csrc/eva_tiles.cuh: kTile elements a block, about
 EF_TILE = 1024
 
 
@@ -63,10 +61,14 @@ def eva_fused_plan(d_in: int, d_out: int) -> tuple[int, int, int, int]:
     return rows, dot_blocks, emit_blocks, 2 + dot_blocks + 3 * emit_blocks
 
 
-def _scalars(denom: torch.Tensor, gamma: float, mu: float) -> torch.Tensor:
-    """(L, 3) f32 [denom, 1/γ, μ] per item, the Eva-f emit kernel's ``sc``."""
-    return torch.stack([denom, torch.full_like(denom, 1.0 / gamma),
-                        torch.full_like(denom, mu)], dim=-1)
+def eva_f_fused_plan(d_in: int, d_out: int) -> tuple[int, int]:
+    """(emit_blocks, scratch) per stack item: launch 1 (``matvec``) leaves
+    u (d_out values) and ‖a‖² in the workspace, launch 2's emit_blocks
+    blocks cover EF_TILE elements each and leave one aux partial of three
+    values, so an item takes ``scratch`` f32 values and one counter.
+    Depends on (d_in, d_out) alone."""
+    emit_blocks = -(-(d_in * d_out) // EF_TILE)
+    return emit_blocks, d_out + 1 + 3 * emit_blocks
 
 
 def _momentum(m, fold_momentum: bool):
@@ -88,9 +90,9 @@ def eva_fused_stacked(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     fold, all f32.
 
     Returns ``(out, aux)``: out (L, d_in, d_out) f32, aux (L, 3) f32.  The
-    scratch comes from the device's workspace (``launch.py``): use one
-    stream per device, and call once eagerly with the shapes of a CUDA
-    graph before capturing it.
+    scratch comes from the stream's workspace (``launch.py``): call once
+    eagerly, on the stream you capture on, with the shapes of a CUDA graph
+    before capturing it.
     """
     index = launch.check_g(g, 3)
     L, d_in, d_out = g.shape
@@ -103,13 +105,14 @@ def eva_fused_stacked(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
         launch.check_f32(m, (L, d_in, d_out), index)
     if d_in * d_out >= 2 ** 31:
         raise ValueError(f'{d_in}x{d_out} item exceeds 32-bit indexing')
-    ws = launch.workspace(index)
+    handle = launch.stream(index)
+    ws = launch.workspace(index, handle)
     scratch, counters = ws.reserve(L * eva_fused_plan(d_in, d_out)[3], L)
     # the allocations that cost the host least: g is contiguous, a is f32
     out = torch.empty_like(g, dtype=torch.float32)
     aux = a.new_empty((L, 3))
     launch.call(launch.entry('eva_fused', 'repro_eva_fused', _SIGNATURES),
-                index, 'eva_fused launch', g.data_ptr(),
+                index, handle, 'eva_fused launch', g.data_ptr(),
                 g.dtype is torch.bfloat16, a.data_ptr(), b.data_ptr(), m_ptr,
                 out.data_ptr(), aux.data_ptr(), scratch, ws.n_f32, counters,
                 ws.n_i32, gamma, 1.0 / gamma, mu, fold_momentum, L, d_in,
@@ -124,24 +127,27 @@ def eva_f_fused_stacked(g: torch.Tensor, a: torch.Tensor, gamma: float,
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused Eva-f (Eq. 21) + epilogue; the contract of
     :func:`eva_fused_stacked` without b, u = aᵀG taking its place."""
+    index = launch.check_g(g, 3)
     L, d_in, d_out = g.shape
+    if L < 1 or L > 65535:
+        raise ValueError(f'stack size L={L} outside [1, 65535]')
+    launch.check_f32(a, (L, d_in), index)
     ms, m_ptr = _momentum(m, fold_momentum)
-    _bil.check_operands(g, a, *ms, widths=(d_in, (d_in, d_out)))
-    lib = build.library('eva_f_fused', _F_SIGNATURES)
-    out = torch.empty((L, d_in, d_out), dtype=torch.float32, device=g.device)
-    chunks = -(-(d_in * d_out) // lib.repro_eva_f_chunk_elems())
-    aux_partials = torch.empty((L, chunks, 3), dtype=torch.float32,
-                               device=g.device)
-    with torch.cuda.device(g.device):
-        u, asq = _mv.split(_mv.launch_matvec(g, a, L, d_in, d_out,
-                                             g.get_device()), L, d_out)
-        sc = _scalars(gamma + asq, gamma, mu)
-        build.check(lib, lib.repro_eva_f_fused_emit(
-            g.data_ptr(), int(g.dtype == torch.bfloat16), a.data_ptr(),
-            u.data_ptr(), sc.data_ptr(), m_ptr, out.data_ptr(),
-            aux_partials.data_ptr(), L, d_in, d_out, int(fold_momentum),
-            torch.cuda.current_stream(g.device).cuda_stream),
-            'eva_f_fused emit launch')
-        aux = _bil.sum_partials(aux_partials)
+    if ms:
+        launch.check_f32(m, (L, d_in, d_out), index)
+    if d_in * d_out >= 2 ** 31:
+        raise ValueError(f'{d_in}x{d_out} item exceeds 32-bit indexing')
+    handle = launch.stream(index)
+    ws = launch.workspace(index, handle)
+    scratch, counters = ws.reserve(L * eva_f_fused_plan(d_in, d_out)[1], L)
+    out = torch.empty_like(g, dtype=torch.float32)
+    aux = a.new_empty((L, 3))
+    launch.call(launch.entry('eva_f_fused', 'repro_eva_f_fused',
+                             _F_SIGNATURES),
+                index, handle, 'eva_f_fused launch', g.data_ptr(),
+                g.dtype is torch.bfloat16, a.data_ptr(), m_ptr,
+                out.data_ptr(), aux.data_ptr(), scratch, ws.n_f32, counters,
+                ws.n_i32, gamma, 1.0 / gamma, mu, fold_momentum, L, d_in,
+                d_out, _mv.matvec_plan(d_in, d_out)[1])
     launches.COUNTS['eva_f_fused'] += 1
     return out, aux

@@ -1,30 +1,35 @@
-"""The lean launch path of the ``rank1_update``, ``matvec_cols``, ``matvec``
-and ``eva_fused`` wrappers, and the per-device workspace of ``eva_fused``.
+"""The lean launch path of the port's kernel wrappers, and the workspace of
+the kernels that finish a sum across blocks inside their launch
+(``eva_fused``, ``eva_f_fused`` and ``bilinear``).
 
 A wrapper's host work is part of every step: the rank-one update runs in a
 few microseconds on the card, so building a ``torch.cuda.Stream`` object,
 entering a device context or looking a C entry up by name on each call
 would cost more than the kernel.  Here each C entry is bound once, the raw
-stream handle is read without building a ``Stream``, and the device
-context is entered only when the operand lies on another card than the
-current one.  The checks are the ones the kernels need and no more, each a
-single test on the common path; only a failed test works out which rule
-was broken.
+stream handle is read without building a ``Stream`` (:func:`stream`), and
+the device context is entered only when the operand lies on another card
+than the current one.  The checks are the ones the kernels need and no
+more, each a single test on the common path; only a failed test works out
+which rule was broken.
 
-The workspace holds the scratch of ``csrc/eva_fused.cu``: f32 partials
-that pass from its first launch to its second, and the int32 arrival
-counters with which the second finishes its sums inside the launch.  The
-kernels leave every counter at 0, so the counters are zeroed once, when the
-workspace grows, and never again.  It grows to the largest call seen and
-never shrinks.  Two rules follow, and the wrapper's docstring repeats
-them:
+A workspace holds f32 scratch (partials that pass from block to block, or
+from one launch to the next) and int32 arrival counters with which a launch
+finishes its sums.  The kernels leave every counter at 0, so the counters
+are zeroed once, when the workspace grows, and never again.  There is one
+workspace per (device, stream): the calls on one stream run one after
+another, so they can share it, and calls on two streams never meet in one.
+A wrapper reads the stream handle once and passes it both to
+:func:`workspace` and to :func:`call`.  A workspace grows to the largest
+call seen on its stream and never shrinks.  A CUDA graph captures its
+pointers, so:
 
-  * one stream per device: two streams using one device's workspace at
-    once would share partials and counters;
-  * a CUDA graph captures the workspace's pointers, so it must have grown
-    to the captured calls' shapes before capture (an eager call of the same
-    shapes does it); growth during capture raises.  A graph captured before
-    a later growth still replays: the buffers it points at are kept.
+  * warm up on the stream you capture on: an eager call with the captured
+    calls' shapes on that stream grows the workspace the capture uses;
+    growth during capture raises.  A graph captured before a later growth
+    still replays: the buffers it points at are kept;
+  * a graph replays with the workspace of the stream it was captured on,
+    whatever stream it is replayed on: do not replay it while calls on that
+    stream, or another graph captured there, run at the same time.
 """
 from __future__ import annotations
 
@@ -51,18 +56,24 @@ def entry(lib_name: str, fn_name: str, signatures: dict[str, list]
     return got
 
 
-def call(bound: tuple[ctypes.CDLL, ctypes._CFuncPtr], index: int, what: str,
-         *args) -> None:
-    """Launch the bound C entry with ``args`` and the current stream of
-    device ``index`` as its last argument (the handle PyTorch's current
-    stream wraps, read as Triton's launcher reads it); raise if the launch
-    was refused."""
+def stream(index: int) -> int:
+    """The raw handle of device ``index``'s current stream, the one
+    PyTorch's current ``Stream`` wraps, read as Triton's launcher reads
+    it."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
+def call(bound: tuple[ctypes.CDLL, ctypes._CFuncPtr], index: int,
+         handle: int, what: str, *args) -> None:
+    """Launch the bound C entry with ``args`` and the stream ``handle`` of
+    device ``index`` (from :func:`stream`) as its last argument; raise if
+    the launch was refused."""
     lib, fn = bound
     if index == torch._C._cuda_getDevice():
-        err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+        err = fn(*args, handle)
     else:
         with torch.cuda.device(index):
-            err = fn(*args, torch._C._cuda_getCurrentRawStream(index))
+            err = fn(*args, handle)
     if err:
         build.check(lib, err, what)
 
@@ -101,8 +112,8 @@ def check_f32(v: torch.Tensor, shape: tuple, index: int,
 
 
 class Workspace:
-    """The scratch of one device: ``n_f32`` f32 values and ``n_i32`` int32
-    counters, zero whenever no kernel runs."""
+    """The scratch of one stream of one device: ``n_f32`` f32 values and
+    ``n_i32`` int32 counters, zero whenever no kernel runs."""
 
     def __init__(self, device: torch.device):
         self.device = device
@@ -131,12 +142,14 @@ class Workspace:
         self.ptrs = (f32.data_ptr(), i32.data_ptr())
 
 
-_workspaces: dict[int, Workspace] = {}
+_workspaces: dict[tuple[int, int], Workspace] = {}
 
 
-def workspace(index: int) -> Workspace:
-    """The workspace of CUDA device ``index``."""
-    ws = _workspaces.get(index)
+def workspace(index: int, handle: int) -> Workspace:
+    """The workspace of stream ``handle`` (from :func:`stream`) on CUDA
+    device ``index``."""
+    key = (index, handle)
+    ws = _workspaces.get(key)
     if ws is None:
-        ws = _workspaces[index] = Workspace(torch.device('cuda', index))
+        ws = _workspaces[key] = Workspace(torch.device('cuda', index))
     return ws

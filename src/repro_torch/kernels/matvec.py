@@ -30,55 +30,43 @@ _COLS_SIGNATURES = {
 }
 _F32_BYTES = 4
 
-# The partition of csrc/matvec.cu: kMvCols columns a block, kMvRows rows a
+# The partition of csrc/matvec.cuh: kMvCols columns a block, kMvRows rows a
 # chunk, kMvSub chunks a warp, at most kMvWarps warps a block
 MV_COLS, MV_ROWS, MV_SUB, MV_WARPS = 16, 16, 8, 8
 
 
 def matvec_plan(d_in: int, d_out: int) -> tuple[int, int]:
-    """(blocks, warps) per stack item of ``csrc/matvec.cu``: one block per
-    strip of MV_COLS columns, with a warp for every MV_SUB chunks of MV_ROWS
-    rows, up to MV_WARPS (more chunks take more rounds).  Depends on
-    (d_in, d_out) alone."""
+    """(blocks, warps) per stack item of ``csrc/matvec.cuh``'s kernel (the
+    matvec op, and launch 1 of ``eva_f_fused``): one block per strip of
+    MV_COLS columns, with a warp for every MV_SUB chunks of MV_ROWS rows, up
+    to MV_WARPS (more chunks take more rounds).  Depends on (d_in, d_out)
+    alone."""
     chunks = -(-d_in // MV_ROWS)
     return -(-d_out // MV_COLS), min(MV_WARPS, -(-chunks // MV_SUB))
 
 
-def launch_matvec(g: torch.Tensor, a: torch.Tensor, L: int, d_in: int,
-                  d_out: int, index: int) -> torch.Tensor:
-    """Launch ``csrc/matvec.cu`` on checked operands: one flat f32 tensor
-    of L·d_out + L values, u (L, d_out) then ‖a‖² (L,).  Shared by the
-    matvec wrappers and the fused Eva-f kernel's first launch; it counts
-    nothing itself."""
-    out = torch.empty(L * d_out + L, dtype=torch.float32, device=g.device)
-    u = out.data_ptr()
-    launch.call(launch.entry('matvec', 'repro_matvec', _SIGNATURES), index,
-                'matvec launch', g.data_ptr(), g.dtype is torch.bfloat16,
-                a.data_ptr(), u, u + _F32_BYTES * L * d_out, L, d_in, d_out,
-                matvec_plan(d_in, d_out)[1])
-    return out
-
-
-def split(out: torch.Tensor, L: int, d_out: int, stacked: bool = True
-          ) -> tuple[torch.Tensor, torch.Tensor]:
-    """u and ‖a‖² as two contiguous views of :func:`launch_matvec`'s flat
-    output ((L, d_out) and (L,), or (d_out,) and () unstacked), since
+def _launch(g, a, L: int, d_in: int, d_out: int, lead, index: int):
+    """Launch ``csrc/matvec.cu`` into one flat f32 tensor of L·d_out + L
+    values, u (L, d_out) then ‖a‖² (L,), and return the two as contiguous
+    views ((L, d_out) and (L,), or (d_out,) and () unstacked), since
     rank1_update takes u as its b operand.  ``as_strided`` is the view that
     costs the host least."""
-    n = L * d_out
-    if stacked:
-        return out.as_strided((L, d_out), (d_out, 1)), \
-            out.as_strided((L,), (1,), n)
-    return out.as_strided((d_out,), (1,)), out.as_strided((), (), n)
-
-
-def _launch(g, a, L: int, d_in: int, d_out: int, lead, index: int):
     launch.check_f32(a, lead + (d_in,), index)
     if d_in * d_out >= 2 ** 31:
         raise ValueError(f'{d_in}x{d_out} item exceeds 32-bit indexing')
-    out = launch_matvec(g, a, L, d_in, d_out, index)
+    n = L * d_out
+    out = torch.empty(n + L, dtype=torch.float32, device=g.device)
+    u = out.data_ptr()
+    launch.call(launch.entry('matvec', 'repro_matvec', _SIGNATURES), index,
+                launch.stream(index), 'matvec launch', g.data_ptr(),
+                g.dtype is torch.bfloat16, a.data_ptr(), u,
+                u + _F32_BYTES * n, L, d_in, d_out,
+                matvec_plan(d_in, d_out)[1])
     launches.COUNTS['matvec'] += 1
-    return split(out, L, d_out, bool(lead))
+    if lead:
+        return out.as_strided((L, d_out), (d_out, 1)), \
+            out.as_strided((L,), (1,), n)
+    return out.as_strided((d_out,), (1,)), out.as_strided((), (), n)
 
 
 def matvec_and_norm_stacked(g: torch.Tensor, a: torch.Tensor
@@ -159,9 +147,10 @@ def matvec_cols_stacked(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     u = torch.empty((L, R, n), dtype=torch.float32, device=g.device)
     # the copy engine (TMA) fills the stages where every row is aligned f32
     launch.call(launch.entry('matvec_cols', 'repro_matvec_cols',
-                             _COLS_SIGNATURES), index, 'matvec_cols launch',
-                cfg, a_vec and g_vec and not bf16, g_ptr, bf16, a_ptr,
-                u.data_ptr(), L, R, m, n, a_vec, g_vec, gx, gy)
+                             _COLS_SIGNATURES), index, launch.stream(index),
+                'matvec_cols launch', cfg, a_vec and g_vec and not bf16,
+                g_ptr, bf16, a_ptr, u.data_ptr(), L, R, m, n, a_vec, g_vec,
+                gx, gy)
     launches.COUNTS['matvec_cols'] += 1
     return u
 

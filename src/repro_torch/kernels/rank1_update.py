@@ -44,10 +44,10 @@ def _launch(g, a, b, coeff, scale, L: int, d_in: int, d_out: int, lead,
         raise ValueError(f'{d_in}x{d_out} item exceeds 32-bit indexing')
     out = torch.empty_like(g)
     launch.call(launch.entry('rank1_update', 'repro_rank1_update',
-                             _SIGNATURES), index, 'rank1_update launch',
-                g.data_ptr(), g.dtype is torch.bfloat16, a.data_ptr(),
-                b.data_ptr(), c_ptr, c_stride, s_ptr, s_stride,
-                out.data_ptr(), L, d_in, d_out)
+                             _SIGNATURES), index, launch.stream(index),
+                'rank1_update launch', g.data_ptr(),
+                g.dtype is torch.bfloat16, a.data_ptr(), b.data_ptr(), c_ptr,
+                c_stride, s_ptr, s_stride, out.data_ptr(), L, d_in, d_out)
     launches.COUNTS['rank1_update'] += 1
     return out
 

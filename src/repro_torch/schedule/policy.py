@@ -1,8 +1,11 @@
 """Refresh policies: when the applied curvature snapshot is renewed.
 
 Counterpart of ``repro/schedule/policy.py``, with the ``every_k`` policy that
-Eva uses.  Every decision stays a device tensor: ``refresh`` is a 0-d bool
-and the snapshot update a ``torch.where``, so no step waits on the card.
+Eva uses.  Every decision is a device tensor: ``refresh`` is a 0-d bool, and
+the counters advance by ``torch.where`` without waiting on the card.  A
+refresh that skips work (K-FAC's inverses, Shampoo's roots) reads the flag
+on the host once a step through :func:`on_host`, which reads nothing for a
+policy that refreshes on every step.
 """
 from __future__ import annotations
 
@@ -31,11 +34,13 @@ class SchedState(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class RefreshPolicy:
-    """``decide(state, stats) -> (refresh, staleness)``, both 0-d tensors."""
+    """``decide(state, stats) -> (refresh, staleness)``, both 0-d tensors.
+    ``always``: every decision is True (``every_k(1)``)."""
 
     name: str
     decide: Callable[[SchedState, Any], tuple[torch.Tensor, torch.Tensor]]
     wants_snapshot: bool = False
+    always: bool = False
 
 
 def init_state(policy: RefreshPolicy, stats_template: Any,
@@ -69,7 +74,14 @@ def every_k(k: int = 1) -> RefreshPolicy:
         del stats
         return (state.count % k) == 0, state.since.to(torch.float32)
 
-    return RefreshPolicy(name=f'every_k({k})', decide=decide)
+    return RefreshPolicy(name=f'every_k({k})', decide=decide, always=k == 1)
+
+
+def on_host(policy: RefreshPolicy, refresh: torch.Tensor) -> bool:
+    """The decision ``refresh`` as a host bool, to skip the work of a step
+    that keeps the old values.  Reading it waits for the card (one sync);
+    a policy that always refreshes needs no read."""
+    return policy.always or bool(refresh)
 
 
 def resolve(policy: Optional[RefreshPolicy], interval: int = 1

@@ -64,7 +64,7 @@ def resolve_pipe(rt: RefreshRuntime, state_pipe):
     return None
 
 
-def sharded_refresh(plan: BucketPlan, refresh: torch.Tensor,
+def sharded_refresh(plan: BucketPlan, refresh: bool,
                     item_fn: Callable[[Bucket, Any], Any],
                     args_b: Mapping[str, Any], old_b: Mapping[str, Any], *,
                     cost: Callable[[Bucket], float],
@@ -74,23 +74,22 @@ def sharded_refresh(plan: BucketPlan, refresh: torch.Tensor,
     ``item_fn(bucket, row)`` recomputes one stack row of ``args_b[key]``
     (e.g. a damped-inverse pair); the rows are recomputed one at a time in
     stack order, as the reference's ``lax.map``, and stacked again.
-    ``refresh`` is a 0-d device bool: the result is ``torch.where(refresh,
-    fresh, old)`` leaf by leaf, so no step waits on the card — where the
-    reference's ``lax.cond`` skips the recomputation on a step that keeps
-    the old values, this computes it and throws it away.  ``cost`` weighs
-    an item for the owner assignment of the multi-worker form and is unused
-    by one worker.  Returns ``{bucket_key: values}`` shaped as ``old_b``.
+    ``refresh`` is the decision on the host (``policy.on_host``): on a step
+    that keeps the old values nothing is computed and ``old_b``'s values
+    come back as they are, as the reference's ``lax.cond`` skips the
+    recomputation.  ``cost`` weighs an item for the owner assignment of the
+    multi-worker form and is unused by one worker.  Returns
+    ``{bucket_key: values}`` shaped as ``old_b``.
     """
     del cost
     if shard:
         ownership.world_and_rank()   # raises for several workers
+    if not refresh:
+        return {b.key: old_b[b.key] for b in plan.buckets}
     out = {}
     for b in plan.buckets:
         args = args_b[b.key]
-        n = len(b.paths)
         rows = [item_fn(b, tree_map(lambda x, i=i: x[i], args))
-                for i in range(n)]
-        fresh = tree_map(lambda *xs: torch.stack(xs), *rows)
-        out[b.key] = tree_map(lambda f, o: torch.where(refresh, f, o), fresh,
-                              old_b[b.key])
+                for i in range(len(b.paths))]
+        out[b.key] = tree_map(lambda *xs: torch.stack(xs), *rows)
     return out

@@ -204,3 +204,55 @@ def test_matvec_stacked_repeats_and_replays_on_card(shape, dtype):
                           (u[sl], asq[sl]))
         assert _same_bits(mv.matvec_and_norm(g[i], a[i]), (u[i], asq[i]))
     launches.reset()
+
+
+@pytest.mark.parametrize('shape', [(784, 1000), (1000, 784), (250, 30),
+                                   (30, 250), (129, 127), (1000, 513),
+                                   (3000, 2)])
+def test_eva_f_fused_plan(shape):
+    """The two launches of fused Eva-f: matvec's partition, then eva_fused's
+    emit partition of EF_TILE-element blocks; the workspace holds u, ‖a‖²
+    and one aux partial of three values a block, and one counter an item.
+    Depends on (d_in, d_out) alone."""
+    d_in, d_out = shape
+    blocks, scratch = fused.eva_f_fused_plan(d_in, d_out)
+    assert blocks == fused.eva_fused_plan(d_in, d_out)[2]
+    assert ((blocks - 1) * fused.EF_TILE < d_in * d_out
+            <= blocks * fused.EF_TILE)
+    assert scratch == d_out + 1 + 3 * blocks
+    if shape == (784, 1000):
+        assert blocks >= 4 * mv.H100_SMS
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('fold', [False, True])
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', [(1, 784, 1000), (3, 1000, 1000),
+                                   (2, 129, 127)])
+def test_eva_f_fused_repeats_replays_and_matches_composed_on_card(
+        shape, dtype, fold):
+    """The two-launch fused Eva-f kernel: repeated calls and graph replays
+    give the same bits, a stack equals its items bit for bit (the second
+    item of 2 x 129 x 127 sits 4 bytes off a 16-byte boundary), and on f32
+    G without the fold out equals composed Eva-f (matvec + rank1_update)
+    bit for bit (needs a card and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    _, (g, a, _, m) = _mk(shape[1:], dtype, shape[:1], seed=14)
+    g, a, m = g.cuda(), a.cuda(), m.cuda()
+    m = m if fold else None
+    out, aux = _repeats_and_replays(
+        lambda: fused.eva_f_fused_stacked(g, a, GAMMA, m, MU, fold))
+    r_out, r_aux = ref.eva_f_fused_ref(g, a, GAMMA, m, MU, fold)
+    torch.testing.assert_close(GAMMA * out, GAMMA * r_out, atol=1e-6,
+                               rtol=1e-6)
+    torch.testing.assert_close(aux, r_aux, atol=1e-4, rtol=2e-5)
+    for i in range(shape[0]):
+        sl = slice(i, i + 1)
+        assert _same_bits(fused.eva_f_fused_stacked(
+            g[sl], a[sl], GAMMA, None if m is None else m[sl], MU, fold),
+            (out[sl], aux[sl]))
+    if dtype == 'float32' and not fold:
+        assert torch.equal(ops.eva_f_precondition(g, a, GAMMA, impl='cuda'),
+                           out)
+    launches.reset()

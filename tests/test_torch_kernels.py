@@ -162,6 +162,8 @@ def test_dispatch_impls_agree_on_cpu(impl):
 
 @pytest.mark.parametrize('wrapper', [
     lambda g, a, b, m: bil.bilinear_and_norms_stacked(g, a, b),
+    lambda g, a, b, m: bil.bilinear_and_norms(g[0], a[0], b[0]),
+    lambda g, a, b, m: bil.bilinear(g[0], a[0], b[0]),
     lambda g, a, b, m: r1.rank1_update_stacked(g, a, b, torch.ones(3, 2)),
     lambda g, a, b, m: r1.rank1_update_stacked(g, a, b, torch.ones(3),
                                                torch.ones(3)),
@@ -173,9 +175,12 @@ def test_dispatch_impls_agree_on_cpu(impl):
     lambda g, a, b, m: fused.eva_f_fused_stacked(g, a, GAMMA, m, MU),
     lambda g, a, b, m: mv.matvec_cols_stacked(g, a[:, None]),
     lambda g, a, b, m: mv.matvec_cols(g[0], a[:2]),
-], ids=['bilinear', 'rank1_update', 'rank1_update_two_tensors',
-        'rank1_update_unstacked', 'rank1_update_unstacked_pair', 'eva_fused',
-        'matvec', 'eva_f_fused', 'matvec_cols_stacked', 'matvec_cols'])
+    lambda g, a, b, m: fused.eva_f_fused_stacked(g, a, GAMMA, None, MU,
+                                                 False),
+], ids=['bilinear', 'bilinear_and_norms_unstacked', 'bilinear_unstacked',
+        'rank1_update', 'rank1_update_two_tensors', 'rank1_update_unstacked',
+        'rank1_update_unstacked_pair', 'eva_fused', 'matvec', 'eva_f_fused',
+        'matvec_cols_stacked', 'matvec_cols', 'eva_f_fused_no_fold'])
 def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     """A kernel wrapper launches its kernel or raises: it has no CPU path."""
     _, (g, a, b, m) = _mk((64, 48), 'float32', (3,), seed=3)
@@ -193,9 +198,13 @@ def test_kernel_wrappers_refuse_cpu_tensors(wrapper):
     lambda g, a, b: mv.matvec_and_norm_stacked(g, a),
     lambda g, a, b: mv.matvec_and_norm(g[0], a[0]),
     lambda g, a, b: fused.eva_fused_stacked(g, a, b, GAMMA, None, MU, False),
+    lambda g, a, b: fused.eva_f_fused_stacked(g, a, GAMMA, None, MU, False),
+    lambda g, a, b: bil.bilinear_and_norms_stacked(g, a, b),
+    lambda g, a, b: bil.bilinear_and_norms(g[0], a[0], b[0]),
 ], ids=['rank1_update_stacked', 'rank1_update', 'matvec_cols_stacked',
         'matvec_cols', 'matvec_and_norm_stacked', 'matvec_and_norm',
-        'eva_fused_stacked'])
+        'eva_fused_stacked', 'eva_f_fused_stacked',
+        'bilinear_and_norms_stacked', 'bilinear_and_norms'])
 def test_lean_wrappers_refuse_wrong_dtypes(wrapper, dtype):
     """The lean launch path takes g in f32 or bf16 only, whatever its
     device."""
@@ -222,6 +231,23 @@ def test_eva_fused_plan(shape):
     if shape == (784, 1000):
         # at least four blocks on each of an H100's 132 SMs
         assert min(dot_blocks, emit_blocks) >= 4 * mv.H100_SMS
+
+
+@pytest.mark.parametrize('shape', [(784, 1000), (1000, 784), (250, 30),
+                                   (30, 250), (129, 127), (1000, 513),
+                                   (3000, 2)])
+def test_bilinear_plan(shape):
+    """The one-launch bilinear kernel takes launch 1 of eva_fused's row
+    partition, so that the dot it finishes is eva_fused's: one f32 partial
+    a row block in the workspace, and one counter an item."""
+    d_in, d_out = shape
+    rows, blocks, scratch = bil.bilinear_plan(d_in, d_out)
+    assert (rows, blocks) == fused.eva_fused_plan(d_in, d_out)[:2]
+    assert (blocks - 1) * rows < d_in <= blocks * rows
+    assert scratch == blocks
+    if shape == (784, 1000):
+        # 785 blocks with the norms' block: about six on each of 132 SMs
+        assert blocks + 1 >= 4 * mv.H100_SMS
 
 
 def test_workspace_grows_and_never_shrinks():
@@ -309,14 +335,20 @@ def _same_bits(got, want):
 
 def _repeats_and_replays(fn):
     """Three calls of ``fn`` in a row, then a CUDA graph of one call
-    replayed three times: each gives the first call's bits (eva_fused's
-    kernel keeps its arrival counters at zero).  The eager calls grow the
-    workspace before the capture."""
+    replayed three times: each gives the first call's bits (the kernels
+    that finish a sum by ticket keep their arrival counters at zero).  The
+    graph is captured on a side stream after an eager call there, which
+    grows that stream's workspace before the capture."""
     want = [x.clone() for x in fn()]
     for _ in range(2):
         assert _same_bits(fn(), want)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        assert _same_bits(fn(), want)
+    torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         outs = fn()
     for _ in range(3):
         graph.replay()
@@ -346,4 +378,39 @@ def test_eva_fused_stacked_repeats_and_replays_on_card(shape, dtype, fold):
         assert _same_bits(fused.eva_fused_stacked(
             g[sl], a[sl], b[sl], GAMMA, None if m is None else m[sl], MU,
             fold), (out[sl], aux[sl]))
+    launches.reset()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shape', [(1, 784, 1000), (3, 1000, 1000),
+                                   (2, 129, 127)])
+def test_bilinear_repeats_replays_and_matches_fused_on_card(shape, dtype):
+    """The one-launch bilinear kernel: repeated calls and graph replays give
+    the same bits, a stack equals its items and the unstacked form bit for
+    bit, and on f32 G its dot and norms are the ones fused Eva forms, so
+    composed Eva equals fused Eva without the fold bit for bit (needs a card
+    and nvcc)."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs a CUDA device: the kernels have no CPU mode')
+    _, (g, a, b, _) = _mk(shape[1:], dtype, shape[:1], seed=13)
+    g, a, b = g.cuda(), a.cuda(), b.cuda()
+    dot, sq = _repeats_and_replays(
+        lambda: bil.bilinear_and_norms_stacked(g, a, b))
+    assert torch.all((dot - ref.bilinear_ref(g, a, b)).abs()
+                     <= TOL[dtype] * ref.bilinear_ref(g.abs(), a.abs(),
+                                                      b.abs()))
+    torch.testing.assert_close(sq, ref.bilinear_and_norms_ref(g, a, b)[1],
+                               atol=0, rtol=1e-5)
+    for i in range(shape[0]):
+        sl = slice(i, i + 1)
+        assert _same_bits(bil.bilinear_and_norms_stacked(g[sl], a[sl], b[sl]),
+                          (dot[sl], sq[sl]))
+        assert _same_bits(bil.bilinear_and_norms(g[i], a[i], b[i]),
+                          (dot[i], sq[i]))
+    if dtype == 'float32':
+        from repro_torch.kernels import ops
+        out, _ = fused.eva_fused_stacked(g, a, b, GAMMA, None, MU, False)
+        assert torch.equal(ops.eva_precondition(g, a, b, GAMMA, impl='cuda'),
+                           out)
     launches.reset()
