@@ -64,6 +64,23 @@ Phases; any failure stops the run with a non-zero exit:
               empty kernel); rank1_update on its largest layer alone; the
               step times of each optimizer, the forward + backward alone,
               and a torch.profiler breakdown of each step.
+7. lm       — the demo transformer LM at full width, demo_lm('100m') (12
+              layers of d_model 768, 12 heads and 4 KV heads, d_ff 2048,
+              vocab 32768, remat 'dots'; 125,848,320 parameters) on
+              LMStream batches of 16 x 512 tokens: Eva and Eva-f, 10 steps
+              composed and 10 fused each, held to the plain path as in
+              phase 4, one launch per weight and step (each 12-deep layer
+              stack folded into one stacked launch); K-FAC with the head's
+              32768-wide output side sharded, 3 steps held the same way, 32
+              matvec_cols launches a step, each step's host-clock ms; the
+              loss on each run's first batch falls; serving: decode of the
+              16th token after a 15-token prefill against a prefill over
+              all 16, then 8 greedy decode steps.  Then the LM's times,
+              added to phase 6's rows: each kernel's calls of one LM step
+              (row 9: all 32 band products in each timed run) from a CUDA
+              graph and eager, beside its plain version, bound and library
+              call; matvec alone on the tall G (mlp/down, 12 x 2048 x 768);
+              step times and a profile of each step.
 
 The line before the card line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -73,6 +90,7 @@ from __future__ import annotations
 import collections
 import contextlib
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -105,12 +123,12 @@ DEVICE_LAUNCHES = {'bilinear': (1.0, 1.0), 'rank1_update': (1.0, 1.0),
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 F32_FLOPS = 67e12                           # H100 SXM f32, no tensor cores
 STEPS = 20
-# optimizer -> (lr of benchmarks/fig4_autoencoder.py, kernels launched once
-# per layer and step composed, the same fused)
+# optimizer -> (lr of benchmarks/fig4_autoencoder.py, more options,
+# kernels launched once per layer and step composed, the same fused)
 MAIN_PATHS = {
-    'eva': (0.15, ('bilinear', 'rank1_update'), ('eva_fused',)),
-    'eva_f': (0.15, ('matvec', 'rank1_update'), ('eva_f_fused',)),
-    'eva_s': (0.3, ('bilinear', 'rank1_update'), ('eva_fused',)),
+    'eva': (0.15, {}, ('bilinear', 'rank1_update'), ('eva_fused',)),
+    'eva_f': (0.15, {}, ('matvec', 'rank1_update'), ('eva_f_fused',)),
+    'eva_s': (0.3, {}, ('bilinear', 'rank1_update'), ('eva_fused',)),
 }
 # matvec_cols: (R, m, n) band shapes of tests/test_kernels.py (R = 5), the
 # autoencoder's 784- and 500-row gradients against a 1000-wide factor, and
@@ -134,6 +152,25 @@ SOLVER_PATHS = {
 INTERVAL = 10
 DENSE_REFRESH_KERNELS = ('getrf', 'trsm', 'syev', 'sytrd', 'stedc')
 INTERVAL_SAVING_MS = 25.0
+# phase 7: demo_lm('100m') (125,848,320 parameters) on LMStream batches of
+# 16 x 512 tokens; Eva at examples/quickstart.py's options, Eva-f at its lr
+LM_PARAMS = 125_848_320
+LM_STREAM = dict(vocab=32768, seq_len=512, batch=16, seed=0)
+LM_STEPS = 10
+LM_PATHS = {
+    'eva': (0.05, dict(gamma=0.03, kl_kappa=1e-3), ('bilinear',
+                                                    'rank1_update'),
+            ('eva_fused',)),
+    'eva_f': (0.05, {}, ('matvec', 'rank1_update'), ('eva_f_fused',)),
+}
+# K-FAC with the head's 32768-wide output side sharded (the one side that
+# trips), CG with 32 band products a step; a few steps, each about 2 s
+LM_SHARD = dict(head_policy='shard', shard_threshold=32768, solve_iters=32,
+                solver='cg')
+LM_KFAC_LR = 0.05
+LM_KFAC_STEPS = 3
+LM_TIME_ITERS = 20
+SERVE_TOL = 2e-2                            # tests/test_serving_consistency.py
 
 
 def fail(msg: str):
@@ -562,31 +599,46 @@ def _eva_f_checks(torch, g, a, m, tag, float32):
 # 4. the main path: full-width autoencoder, composed and fused
 
 
-def _make_opt(name, lr, fused, impl, shard=None, interval=1):
+def _make_opt(name, lr, fused, impl, shard=None, interval=1, opt_kw=None):
     """(optimizer, capture, factor config): the rank-one optimizers take
     the kernel impl as ``kernel_impl``; K-FAC and Shampoo take it with the
     sharded-factor config ``shard`` (None: every factor dense), and
-    refresh their inverses or roots every ``interval`` steps."""
+    refresh their inverses or roots every ``interval`` steps.  ``opt_kw``:
+    more options of the optimizer."""
     from repro_torch.core.factor_sharded import FactorShardConfig
     from repro_torch.core.registry import make_optimizer
+    opt_kw = opt_kw or {}
     if name in MAIN_PATHS:
-        opt, cap = make_optimizer(name, lr=lr, fused=fused, kernel_impl=impl)
+        opt, cap = make_optimizer(name, lr=lr, fused=fused, kernel_impl=impl,
+                                  **opt_kw)
         return opt, cap, None
-    opt, cap = make_optimizer(name, lr=lr, fused=fused, interval=interval)
+    opt, cap = make_optimizer(name, lr=lr, fused=fused, interval=interval,
+                              **opt_kw)
     return opt, cap, (None if shard is None
                       else FactorShardConfig(**shard, impl=impl))
 
 
 def _train(torch, model, params0, batches, *, fused, impl, lr, name='eva',
-           shard=None, interval=1):
+           shard=None, interval=1, taps_fn=None, opt_kw=None, step_ms=None):
+    """(losses, step, params, state) after a step on each batch; each
+    step's host-clock ms (synchronized) goes to the list ``step_ms`` where
+    one is given."""
     from repro_torch.train.step import init_opt_state, make_train_step
-    opt, cap, factor = _make_opt(name, lr, fused, impl, shard, interval)
+    opt, cap, factor = _make_opt(name, lr, fused, impl, shard, interval,
+                                 opt_kw)
     state = init_opt_state(model, opt, cap, params0, batches[0],
-                           factor=factor, device='cuda')
-    step = make_train_step(model, opt, cap, factor=factor, device='cuda')
+                           taps_fn=taps_fn, factor=factor, device='cuda')
+    step = make_train_step(model, opt, cap, taps_fn=taps_fn, factor=factor,
+                           device='cuda')
     params, losses = params0, []
     for batch in batches:
+        if step_ms is not None:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
         params, state, metrics = step(params, state, batch)
+        if step_ms is not None:
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
         losses.append(metrics['loss'])
     return torch.stack(losses).cpu().tolist(), step, params, state
 
@@ -599,7 +651,7 @@ def _compare_trajectories(kernel, plain, what):
 
 
 def _compare_steps(torch, model, params0, batches, *, fused, lr, name,
-                   what, shard=None):
+                   what, shard=None, taps_fn=None, opt_kw=None):
     """Take each step of the kernel path's run a second time with the plain
     step, from the same parameters, state and batch, and hold each leaf's
     change to PARAM_RTOL of the plain change's norm.  The parameters keep
@@ -608,11 +660,12 @@ def _compare_steps(torch, model, params0, batches, *, fused, lr, name,
     from repro_torch.train.step import init_opt_state, make_train_step
     steps = {}
     for impl in ('auto', 'torch'):
-        opt, cap, factor = _make_opt(name, lr, fused, impl, shard)
-        steps[impl] = make_train_step(model, opt, cap, factor=factor,
-                                      device='cuda')
+        opt, cap, factor = _make_opt(name, lr, fused, impl, shard,
+                                     opt_kw=opt_kw)
+        steps[impl] = make_train_step(model, opt, cap, taps_fn=taps_fn,
+                                      factor=factor, device='cuda')
     state = init_opt_state(model, opt, cap, params0, batches[0],
-                           factor=factor, device='cuda')
+                           taps_fn=taps_fn, factor=factor, device='cuda')
     params, worst = params0, 0.0
     for i, batch in enumerate(batches):
         plain, _, _ = steps['torch'](params, state, batch)
@@ -740,56 +793,91 @@ def ae_setup(torch):
     return model, params0, batches
 
 
-def main_phase(torch, model, params0, batches):
-    phase('4 main path: Eva, Eva-f and Eva-s on the full-width autoencoder')
+def _check_path(torch, model, params0, batches, *, name, lr, fused, want,
+                learned, tag, shard=None, taps_fn=None, opt_kw=None):
+    """One optimizer's run with the kernels (``impl='auto'``), held to the
+    plain run (``'torch'``): exactly the launches ``want`` ({kernel:
+    launches in the run}), finite losses, ``learned(losses, params, tag)``
+    (raises unless the run learned, returns what it read), no launch on the
+    plain path, each step's loss within TRAJ_RTOL and each step's change
+    within PARAM_RTOL of the plain path's, and each kernel launched against
+    its plain version on the last inputs the path gave it.  Returns what it
+    read."""
     from repro_torch.kernels import launches
-    n_layers = len(model.dims) - 1
+    kw = dict(fused=fused, lr=lr, name=name, shard=shard, taps_fn=taps_fn,
+              opt_kw=opt_kw)
+    step_ms = []
+    with _recording(torch) as (seen, calls):
+        launches.reset()
+        run = _train(torch, model, params0, batches, impl='auto',
+                     step_ms=step_ms, **kw)
+        got = launches.snapshot()
+    losses, params = run[0], run[2]
+    del run
+    want = {k: want.get(k, 0) for k in launches.COUNTS}
+    require(got == want, f'{tag}: launches {got} != {want}')
+    require(all(map(math.isfinite, losses)),
+            f'{tag}: non-finite loss {losses}')
+    learnt = learned(losses, params, tag)
+    del params
+    launches.reset()
+    plain = _train(torch, model, params0, batches, impl='torch', **kw)[0]
+    require(sum(launches.snapshot().values()) == 0,
+            f"{tag}: impl='torch' launched a kernel")
+    _compare_trajectories(losses, plain, tag)
+    prel = _compare_steps(torch, model, params0, batches, what=tag, **kw)
+    kerr, moved = _check_path_inputs(torch, seen, tag)
+    require(set(kerr) == {k for k, v in want.items() if v},
+            f'{tag}: kernels checked {sorted(kerr)}')
+    rel = max(abs(k - p) / abs(p) for k, p in zip(losses, plain))
+    print(f'  {tag}: launches {got}; loss {losses[0]:.6f} -> '
+          f'{losses[-1]:.6f}'
+          + ('' if learnt is None else
+             f' (first batch {learnt[0]:.6f} -> {learnt[1]:.6f})')
+          + f'; max rel diff to plain {rel:.2e}; step change vs plain '
+          f'{prel:.2e} of its norm; on the path\'s last inputs, error as a '
+          f'share of its limit '
+          f'{ {k: float(f"{v:.2e}") for k, v in kerr.items()} }'
+          + (f'; the rank-one term moves {min(moved):.2e} to '
+             f'{max(moved):.2e} of P\'s elements' if moved else ''),
+          flush=True)
+    return {'launches': got, 'calls': dict(calls), 'losses': losses,
+            'plain_losses': plain, 'learned': learnt,
+            'max_rel_loss_diff': rel, 'step_change_vs_plain': prel,
+            'err_share_of_limit': kerr, 'step_ms': step_ms}
+
+
+def _falls(losses, params, tag):
+    """``learned`` of the autoencoder's runs: the loss falls over the run."""
+    _finite_and_falling(losses, tag)
+
+
+def main_phase(torch, model, params0, batches, paths, learned, what):
+    """Each optimizer of ``paths`` ({name: (lr, more options, kernels
+    launched once per preconditioned weight and step composed, the same
+    fused)}), composed and fused, held by _check_path; ``what`` names the
+    model in tags and JSON keys.  Returns the launches of all runs and the
+    launches per step of each."""
+    from repro_torch.kernels import launches
+    calls = len(model.precon_paths())
     counts = {k: 0 for k in launches.COUNTS}
-    per_step, traj = {}, {}
-    for name, (lr, composed, fused_names) in MAIN_PATHS.items():
+    per_step, info = {}, {}
+    for name, (lr, kw, composed, fused_names) in paths.items():
         for fused in (False, True):
-            tag = f'{name} fused={fused}'
-            with _recording(torch) as (seen, _):
-                launches.reset()
-                losses, *_ = _train(torch, model, params0, batches,
-                                    fused=fused, impl='auto', lr=lr,
-                                    name=name)
-                got = launches.snapshot()
-            want = {k: (n_layers * STEPS if k in (fused_names if fused
-                                                  else composed) else 0)
-                    for k in launches.COUNTS}
-            require(got == want, f'{tag}: launches {got} != {want}')
-            for k, v in got.items():
+            tag = f'{what} {name} fused={fused}'
+            want = {k: calls * len(batches)
+                    for k in (fused_names if fused else composed)}
+            res = _check_path(torch, model, params0, batches, name=name,
+                              lr=lr, fused=fused, want=want, learned=learned,
+                              tag=tag, opt_kw=kw)
+            for k, v in res['launches'].items():
                 counts[k] += v
-            per_step[tag] = {k: v // STEPS for k, v in got.items() if v}
-            require(all(map(lambda x: x == x and abs(x) < float('inf'),
-                            losses)), f'{tag}: non-finite loss {losses}')
-            require(losses[-1] < losses[0],
-                    f'{tag}: loss did not fall ({losses[0]} -> '
-                    f'{losses[-1]})')
-            launches.reset()
-            plain, *_ = _train(torch, model, params0, batches, fused=fused,
-                               impl='torch', lr=lr, name=name)
-            require(sum(launches.snapshot().values()) == 0,
-                    f"{tag}: impl='torch' launched a kernel")
-            _compare_trajectories(losses, plain, f'autoencoder {tag}')
-            prel = _compare_steps(torch, model, params0, batches,
-                                  fused=fused, lr=lr, name=name,
-                                  what=f'autoencoder {tag}')
-            kerr, moved = _check_path_inputs(torch, seen,
-                                             f'autoencoder {tag}')
-            traj[tag] = {'cuda': losses, 'torch': plain}
-            rel = max(abs(k - p) / abs(p) for k, p in zip(losses, plain))
-            print(f'  {tag}: launches {got}; loss {losses[0]:.6f} -> '
-                  f'{losses[-1]:.6f}; max rel diff to plain {rel:.2e}; '
-                  f'step change vs plain {prel:.2e} of its norm; on the '
-                  f'path\'s last inputs, error as a share of its limit '
-                  f'{ {k: float(f"{v:.2e}") for k, v in kerr.items()} }'
-                  + (f'; the rank-one term moves {min(moved):.2e} to '
-                     f'{max(moved):.2e} of P\'s elements' if moved else ''),
-                  flush=True)
-    print(json.dumps({'ae_losses': traj}))
-    print(json.dumps({'ae_launches_per_step': per_step}))
+            per_step[tag] = {k: v // len(batches)
+                             for k, v in res['launches'].items() if v}
+            info[tag] = {k: v for k, v in res.items()
+                         if k not in ('launches', 'calls')}
+    print(json.dumps({f'{what}_checks': info}))
+    print(json.dumps({f'{what}_launches_per_step': per_step}))
     return counts, per_step
 
 
@@ -825,45 +913,21 @@ def solver_phase(torch, model, params0, batches):
     _, heads = fsh.split_plan(plan, fsh.FactorShardConfig(**SHARD))
     sides = sum(p == 'shard' for pol in heads.values() for p in pol)
     require(sides == 4, f'{sides} sharded sides at threshold 1000: {heads}')
-    want_per_step = sides * SHARD['solve_iters']
+    want = {'matvec_cols': sides * SHARD['solve_iters'] * STEPS}
     counts = {k: 0 for k in launches.COUNTS}
-    per_step, traj, info = {}, {}, {}
+    per_step, info = {}, {}
     for name, (lr, shard) in SOLVER_PATHS.items():
         for fused in (False, True):
-            tag = f'{name} shard fused={fused}'
-            with _recording(torch) as (seen, _):
-                launches.reset()
-                losses, *_ = _train(torch, model, params0, batches,
-                                    fused=fused, impl='auto', lr=lr,
-                                    name=name, shard=shard)
-                got = launches.snapshot()
-            want = {k: (want_per_step * STEPS if k == 'matvec_cols' else 0)
-                    for k in launches.COUNTS}
-            require(got == want, f'{tag}: launches {got} != {want}')
-            for k, v in got.items():
+            tag = f'ae {name} shard fused={fused}'
+            res = _check_path(torch, model, params0, batches, name=name,
+                              lr=lr, fused=fused, want=want, learned=_falls,
+                              tag=tag, shard=shard)
+            for k, v in res['launches'].items():
                 counts[k] += v
-            per_step[tag] = {k: v // STEPS for k, v in got.items() if v}
-            _finite_and_falling(losses, tag)
-            launches.reset()
-            plain, *_ = _train(torch, model, params0, batches, fused=fused,
-                               impl='torch', lr=lr, name=name, shard=shard)
-            require(sum(launches.snapshot().values()) == 0,
-                    f"{tag}: impl='torch' launched a kernel")
-            _compare_trajectories(losses, plain, f'autoencoder {tag}')
-            prel = _compare_steps(torch, model, params0, batches,
-                                  fused=fused, lr=lr, name=name,
-                                  what=f'autoencoder {tag}', shard=shard)
-            kerr, _ = _check_path_inputs(torch, seen, f'autoencoder {tag}')
-            require(set(kerr) == {'matvec_cols'}, f'{tag}: kernels {kerr}')
-            traj[tag] = {'cuda': losses, 'torch': plain}
-            rel = max(abs(k - p) / abs(p) for k, p in zip(losses, plain))
-            info[tag] = {'max_rel_loss_diff': rel, 'step_change_vs_plain':
-                         prel, 'err_share_of_limit': kerr['matvec_cols']}
-            print(f'  {tag}: launches {got}; loss {losses[0]:.6f} -> '
-                  f'{losses[-1]:.6f}; max rel diff to plain {rel:.2e}; '
-                  f'step change vs plain {prel:.2e} of its norm; on the '
-                  f'path\'s last inputs matvec_cols err '
-                  f'{kerr["matvec_cols"]:.2e} of its limit', flush=True)
+            per_step[tag] = {k: v // STEPS
+                             for k, v in res['launches'].items() if v}
+            info[tag] = {k: v for k, v in res.items()
+                         if k not in ('launches', 'calls', 'learned')}
         # dense: explicit inverses (K-FAC) or eigh roots (Shampoo) of every
         # side, no hand kernel; how far the shard step lies from it
         launches.reset()
@@ -879,13 +943,13 @@ def solver_phase(torch, model, params0, batches):
                                    fused=False, impl='auto', lr=lr,
                                    name=name, shard=shard)
         gap = _rel_change(params0, p_shard1, p_dense1)
-        shard_losses = traj[f'{name} shard fused=False']['cuda']
-        info[f'{name} dense'] = {'losses': dense,
-                                 'first_step_shard_vs_dense': gap}
+        shard_losses = info[f'ae {name} shard fused=False']['losses']
+        info[f'ae {name} dense'] = {'losses': dense,
+                                    'first_step_shard_vs_dense': gap}
         print(f'  {name} dense: loss {dense[0]:.6f} -> {dense[-1]:.6f} '
-              f'(shard: {shard_losses[-1]:.6f}); the first shard step lies {gap:.3e} of the dense step\'s '
-              f'norm from it (information, not a gate)', flush=True)
-    print(json.dumps({'solver_losses': traj}))
+              f'(shard: {shard_losses[-1]:.6f}); the first shard step lies '
+              f'{gap:.3e} of the dense step\'s norm from it (information, '
+              f'not a gate)', flush=True)
     print(json.dumps({'solver_checks': info}))
     print(json.dumps({'solver_launches_per_step': per_step}))
     i_counts = _interval_checks(torch, model, params0, batches)
@@ -1031,7 +1095,7 @@ def stacked_phase(torch):
     batches = [data.batch_at(i) for i in range(5)]
     per_step = len(plan.buckets)         # one call per bucket or 1-path leaf
     for name in ('eva', 'eva_f'):
-        _, composed, fused_names = MAIN_PATHS[name]
+        _, _, composed, fused_names = MAIN_PATHS[name]
         for fused in (False, True):
             launches.reset()
             losses, *_ = _train(torch, model, params0, batches, fused=fused,
@@ -1088,11 +1152,11 @@ def stacked_phase(torch):
 # 6. times
 
 
-def _time_ms(torch, fn, iters, repeats=3):
+def _time_ms(torch, fn, iters, repeats=3, warmup=5):
     """Median over ``repeats`` of the mean ms per call of ``fn`` between two
-    CUDA events, after warm-up.  Host launch gaps count: the card waits for
-    them too."""
-    for _ in range(5):
+    CUDA events, after ``warmup`` calls.  Host launch gaps count: the card
+    waits for them too."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     means = []
@@ -1108,11 +1172,11 @@ def _time_ms(torch, fn, iters, repeats=3):
     return statistics.median(means)
 
 
-def _graph_ms(torch, fn, iters):
+def _graph_ms(torch, fn, iters, warmup=5):
     """The same, with ``fn`` captured into a CUDA graph and replayed: the
     device time without the host's launch cost."""
     graph, _ = _capture(torch, fn)
-    return _time_ms(torch, graph.replay, iters)
+    return _time_ms(torch, graph.replay, iters, warmup=warmup)
 
 
 def _device_launches(torch, fn, calls):
@@ -1170,13 +1234,13 @@ def _rank1_largest(torch, layer):
     the next, as the gradient does between the backward pass and the
     optimizer."""
     from repro_torch.kernels import rank1_update as r1
-    g, a, b, _, (c, s), cf, sf = layer
+    g, a, b, _, c, s, ac = layer
     n_bytes = 4 * (2 * g.numel() + a.numel() + b.numel() + 2)
     bound_us = _bound(n_bytes, 4 * g.numel())[0] * 1e3
     graph_us = _graph_ms(torch, lambda: [r1.rank1_update(g, a, b, c, s)
                                          for _ in range(20)], 50) * 1e3 / 20
-    addr_us = _graph_ms(torch, lambda: [torch.addr(g, a, b, beta=sf,
-                                                   alpha=-cf * sf)
+    addr_us = _graph_ms(torch, lambda: [torch.addr(g, ac, b, beta=1 / GAMMA,
+                                                   alpha=-1 / GAMMA)
                                         for _ in range(20)], 50) * 1e3 / 20
     return {'largest_layer': 'x'.join(map(str, g.shape)),
             'largest_layer_graph_us': graph_us,
@@ -1192,64 +1256,128 @@ def _bound(n_bytes, n_flops):
                                        else 'operations')
 
 
-def times_phase(torch, err, counts, per_step, model, params0, batches):
-    phase('6 times at the autoencoder shapes (one step = 8 layers; rows 9-10:'
-          ' one step = 128 band products)')
+def _layer_inputs(torch, shapes, seed):
+    """One step's operands of rows 1-8, one weight of each shape in
+    ``shapes`` (its layer stack leading where it has one): a random G, a, b
+    and m, the rank-one coefficients c and s as the path hands them (device
+    tensors: 0-d for a 2-D G, (L,) for a stack), and a pre-scaled by c for
+    the library's one call."""
+    from repro_torch.kernels import ref
+    layers = []
+    for i, shape in enumerate(shapes):
+        g, a, b, m = _inputs(torch, tuple(shape), torch.float32, seed + i)
+        denom = GAMMA + (a * a).sum(-1) * (b * b).sum(-1)
+        c = ref.bilinear_ref(g, a, b) / denom
+        s = torch.full_like(denom, 1.0 / GAMMA)
+        layers.append((g, a, b, m, c, s, a * c[..., None]))
+    return layers
+
+
+def _kernel_fns(torch, layers):
+    """Rows 1-8 on one step's ``layers``: kernel -> (its wrapper calls, a
+    call per weight, as the path makes them; their plain versions; the
+    one-call library equivalent or None), and kernel -> (bytes: each input
+    read once, each output written once; operations)."""
     from repro_torch.kernels import bilinear as bil
     from repro_torch.kernels import fused, ref
     from repro_torch.kernels import matvec as mv
     from repro_torch.kernels import rank1_update as r1
-    layers = []
-    for seed, (d_in, d_out) in enumerate(AE_SHAPES):
-        g, a, b, m = _inputs(torch, (d_in, d_out), torch.float32, 100 + seed)
-        cs = _cs(torch, g, a, b, ref.bilinear_ref(g, a, b))
-        c, s = cs.tolist()
-        # the path hands rank1_update two 0-d device tensors
-        layers.append((g, a, b, m, (cs[0].clone(), cs[1].clone()), c, s))
-    n = sum(d_in * d_out for d_in, d_out in AE_SHAPES)
-    vec_in = sum(d_in for d_in, _ in AE_SHAPES)
-    vec = vec_in + sum(d_out for _, d_out in AE_SHAPES)
-    k = len(AE_SHAPES)
-    work = {  # (bytes: each input read once, each output written once; ops)
-        'bilinear': (4 * (n + vec + k), 3 * n),
-        'rank1_update': (4 * (2 * n + vec + 2 * k), 4 * n),
-        'eva_fused': (4 * (3 * n + vec + 3 * k), 15 * n),
-        'matvec': (4 * (n + vec + k), 2 * n),
-        # fold_momentum=False, as on the path: m is not read
-        'eva_f_fused': (4 * (2 * n + vec_in + 3 * k), 12 * n),
-    }
+    # the fused kernels take every weight as a stack, a 2-D one as one of 1
+    stacks = [(g, a, b, m) if g.dim() == 3 else (g[None], a[None], b[None],
+                                                 m[None])
+              for g, a, b, m, *_ in layers]
+    sf = 1.0 / GAMMA
     fns = {
         'bilinear': (
-            lambda: [bil.bilinear(g, a, b) for g, a, b, *_ in layers],
-            lambda: [ref.bilinear_ref(g, a, b) for g, a, b, *_ in layers],
-            lambda: [torch.einsum('io,i,o->', g, a, b)
+            lambda: [bil.bilinear_and_norms(g, a, b) if g.dim() == 2 else
+                     bil.bilinear_and_norms_stacked(g, a, b)
+                     for g, a, b, *_ in layers],
+            lambda: [ref.bilinear_and_norms_ref(g, a, b)
+                     for g, a, b, *_ in layers],
+            lambda: [torch.einsum('...io,...i,...o->...', g, a, b)
                      for g, a, b, *_ in layers]),
         'rank1_update': (
-            lambda: [r1.rank1_update(g, a, b, *cs)
-                     for g, a, b, m, cs, c, s in layers],
-            lambda: [ref.rank1_update_ref(g, a, b, *cs)
-                     for g, a, b, m, cs, c, s in layers],
-            lambda: [torch.addr(g, a, b, beta=s, alpha=-c * s)
-                     for g, a, b, m, cs, c, s in layers]),
+            lambda: [r1.rank1_update(g, a, b, c, s) if g.dim() == 2 else
+                     r1.rank1_update_stacked(g, a, b, c, s)
+                     for g, a, b, m, c, s, _ in layers],
+            lambda: [ref.rank1_update_ref(g, a, b, c, s)
+                     for g, a, b, m, c, s, _ in layers],
+            # s·(G − (c a) bᵀ), a pre-scaled by each item's c: addr on a 2-D
+            # G, baddbmm on a stack
+            lambda: [torch.addr(g, ac, b, beta=sf, alpha=-sf)
+                     if g.dim() == 2 else
+                     torch.baddbmm(g, ac[..., None], b[:, None, :], beta=sf,
+                                   alpha=-sf)
+                     for g, a, b, m, c, s, ac in layers]),
         'eva_fused': (
-            lambda: [fused.eva_fused_stacked(g[None], a[None], b[None], GAMMA,
-                                             m[None], MU, True)
-                     for g, a, b, m, *_ in layers],
+            lambda: [fused.eva_fused_stacked(g, a, b, GAMMA, m, MU, True)
+                     for g, a, b, m in stacks],
             lambda: [ref.eva_fused_ref(g, a, b, GAMMA, m, MU, True)
                      for g, a, b, m, *_ in layers],
             None),
         'matvec': (
-            lambda: [mv.matvec_and_norm(g, a) for g, a, *_ in layers],
+            lambda: [mv.matvec_and_norm(g, a) if g.dim() == 2 else
+                     mv.matvec_and_norm_stacked(g, a)
+                     for g, a, *_ in layers],
             lambda: [ref.matvec_and_norm_ref(g, a) for g, a, *_ in layers],
-            lambda: [torch.einsum('io,i->o', g, a) for g, a, *_ in layers]),
+            lambda: [torch.einsum('...io,...i->...o', g, a)
+                     for g, a, *_ in layers]),
+        # fold_momentum=False, as on the path: m is not read
         'eva_f_fused': (
-            lambda: [fused.eva_f_fused_stacked(g[None], a[None], GAMMA,
-                                               m[None], MU, False)
-                     for g, a, b, m, *_ in layers],
+            lambda: [fused.eva_f_fused_stacked(g, a, GAMMA, None, MU, False)
+                     for g, a, b, m in stacks],
             lambda: [ref.eva_f_fused_ref(g, a, GAMMA, m, MU, False)
                      for g, a, b, m, *_ in layers],
             None),
     }
+    n = sum(g.numel() for g, *_ in layers)
+    vec_in = sum(a.numel() for _, a, *_ in layers)
+    vec = vec_in + sum(b.numel() for _, _, b, *_ in layers)
+    k = sum(c.numel() for *_, c, _, _ in layers)
+    work = {
+        'bilinear': (4 * (n + vec + k), 3 * n),
+        'rank1_update': (4 * (2 * n + vec + 2 * k), 4 * n),
+        'eva_fused': (4 * (3 * n + vec + 3 * k), 15 * n),
+        'matvec': (4 * (n + vec + k), 2 * n),
+        'eva_f_fused': (4 * (2 * n + vec_in + 3 * k), 12 * n),
+    }
+    return fns, work
+
+
+def _times(torch, kern, plain, lib, work, calls, iters, warmup=5,
+           host_reps=None):
+    """ms of one run of each of ``kern``, ``plain`` and ``lib`` (``calls``
+    wrapper calls each), eager and replayed from a CUDA graph, beside the
+    bound of ``work`` (bytes, operations); host µs per call of ``kern`` and
+    ``lib``."""
+    bound_ms, bound_by = _bound(*work)
+    host_reps = host_reps or max(1, 160 // calls)
+    t = lambda fn: _time_ms(torch, fn, iters, warmup=warmup)  # noqa: E731
+    gr = lambda fn: _graph_ms(torch, fn, iters, warmup)       # noqa: E731
+    return {
+        'ms': t(kern), 'graph_ms': gr(kern),
+        'plain_ms': t(plain), 'plain_graph_ms': gr(plain),
+        'bound_ms': bound_ms, 'bound_by': bound_by,
+        'library_ms': None if lib is None else t(lib),
+        'library_graph_ms': None if lib is None else gr(lib),
+        'host_us_per_call': _host_us(torch, kern, host_reps, calls),
+        'library_host_us_per_call': None if lib is None
+        else _host_us(torch, lib, host_reps, calls),
+    }
+
+
+def _print_times(name, times):
+    print(f'  {name}: ' + ', '.join(
+        f'{key} {v:.4f}' for key, v in times.items()
+        if isinstance(v, (int, float))), flush=True)
+
+
+def times_phase(torch, err, counts, per_step, model, params0, batches):
+    phase('6 times at the autoencoder shapes (one step = 8 layers; rows 9-10:'
+          ' one step = 128 band products)')
+    from repro_torch.kernels import matvec as mv
+    layers = _layer_inputs(torch, AE_SHAPES, 100)
+    fns, work = _kernel_fns(torch, layers)
     meta = {
         'bilinear': ('src/repro_torch/kernels/csrc/bilinear.cu',
                      'src/repro/kernels/bilinear.py:76', [1, 2]),
@@ -1274,17 +1402,7 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
         cols.append((((x + x.T) / 2).contiguous(),
                      torch.randn((r, 1000), generator=gen, device='cuda')))
     reps = SHARD['solve_iters']
-    work['matvec_cols'] = (
-        reps * sum(4 * (a.numel() + g.numel() + a.shape[0] * g.shape[1])
-                   for g, a in cols),
-        reps * sum(2 * a.shape[0] * g.shape[0] * g.shape[1]
-                   for g, a in cols))
-    fns['matvec_cols'] = (
-        lambda: [mv.matvec_cols(g, a) for _ in range(reps) for g, a in cols],
-        lambda: [ref.matvec_cols_ref(g, a) for _ in range(reps)
-                 for g, a in cols],
-        # TF32 is off (phase 1): the library product is full f32
-        lambda: [torch.matmul(a, g) for _ in range(reps) for g, a in cols])
+    fns['matvec_cols'], work['matvec_cols'] = _cols_fns(torch, cols, reps)
     row_iters = {'matvec_cols': 5}
     # launches per call from one call on each band shape: the profiler may
     # drop events from a run of 128
@@ -1294,9 +1412,6 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
     calls['matvec_cols'] = reps * len(cols)
     rows = []
     for name, (kern, plain, lib) in fns.items():
-        iters = row_iters.get(name, 100)
-        bound_ms, bound_by = _bound(*work[name])
-        host_reps = max(1, 160 // calls[name])
         per_call, port_per_call = _device_launches(
             torch, *launch_probe.get(name, (kern, calls[name])))
         port_want, all_want = DEVICE_LAUNCHES[name]
@@ -1313,17 +1428,8 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
             'launches_per_step': {tag: c[name] for tag, c in per_step.items()
                                   if name in c},
             'max_abs_err': err[name],
-            'ms': _time_ms(torch, kern, iters),
-            'graph_ms': _graph_ms(torch, kern, iters),
-            'plain_ms': _time_ms(torch, plain, iters),
-            'plain_graph_ms': _graph_ms(torch, plain, iters),
-            'bound_ms': bound_ms, 'bound_by': bound_by,
-            'library_ms': None if lib is None else _time_ms(torch, lib, iters),
-            'library_graph_ms': None if lib is None
-            else _graph_ms(torch, lib, iters),
-            'host_us_per_call': _host_us(torch, kern, host_reps, calls[name]),
-            'library_host_us_per_call': None if lib is None
-            else _host_us(torch, lib, host_reps, calls[name]),
+            **_times(torch, kern, plain, lib, work[name], calls[name],
+                     row_iters.get(name, 100)),
         }
         if name == 'matvec_cols':
             row['library'] = ('torch.matmul, allow_tf32='
@@ -1331,32 +1437,37 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
         if name == 'rank1_update':
             row.update(_rank1_largest(torch, layers[0]))
         rows.append(row)
-        print(f'  {name}: ' + ', '.join(
-            f'{key} {row[key]:.4f}' for key in
-            ('ms', 'graph_ms', 'plain_ms', 'plain_graph_ms', 'bound_ms',
-             'library_ms', 'library_graph_ms', 'host_us_per_call',
-             'library_host_us_per_call', 'device_launches_per_call',
-             'port_launches_per_call') if row[key] is not None),
-            flush=True)
+        _print_times(name, {k: v for k, v in row.items()
+                            if k.endswith(('ms', 'call'))})
     print(json.dumps({'launch_floor': _launch_floor(torch)}), flush=True)
 
-    variants = _main_variants()
-    steps = _step_times(torch, model, params0, batches, variants,
-                        grads_only=list(MAIN_PATHS), rounds=5, per_round=10)
-    print(json.dumps({'ae_step_ms': steps}))
-    cuda = {k: v for k, v in variants.items() if k.endswith('_cuda_ms')}
-    print(json.dumps({'ae_profile': _profile(
-        torch, model, params0, batches, steps, cuda, n=10)}))
+    _steps_and_profile(torch, model, params0, batches,
+                       _rank_one_variants(MAIN_PATHS), list(MAIN_PATHS),
+                       rounds=5, per_round=10, key='ae')
     # K-FAC and Shampoo: fewer, shorter rounds (Shampoo's dense sides run
     # eigh every step)
-    variants = _solver_variants()
-    steps = _step_times(torch, model, params0, batches, variants,
-                        grads_only=['kfac'], rounds=3, per_round=3)
-    print(json.dumps({'solver_step_ms': steps}))
-    cuda = {k: v for k, v in variants.items() if k.endswith('_cuda_ms')}
-    print(json.dumps({'solver_profile': _profile(
-        torch, model, params0, batches, steps, cuda, n=3)}))
+    _steps_and_profile(torch, model, params0, batches, _solver_variants(),
+                       ['kfac'], rounds=3, per_round=3, key='solver')
     return rows
+
+
+def _cols_fns(torch, cols, reps):
+    """One solve's band products, ``reps`` iterations over ``cols`` ((G, A)
+    pairs): (the kernel's calls, their plain versions, the library's), and
+    (bytes, operations)."""
+    from repro_torch.kernels import matvec as mv
+    from repro_torch.kernels import ref
+    work = (reps * sum(4 * (a.numel() + g.numel() + a.shape[0] * g.shape[1])
+                       for g, a in cols),
+            reps * sum(2 * a.shape[0] * g.shape[0] * g.shape[1]
+                       for g, a in cols))
+    return (
+        lambda: [mv.matvec_cols(g, a) for _ in range(reps) for g, a in cols],
+        lambda: [ref.matvec_cols_ref(g, a) for _ in range(reps)
+                 for g, a in cols],
+        # TF32 is off (phase 1): the library product is full f32
+        lambda: [torch.matmul(a, g) for _ in range(reps) for g, a in cols],
+    ), work
 
 
 def _median_spread(xs):
@@ -1368,9 +1479,9 @@ def _step_times(torch, model, params0, batches, variants, grads_only,
     """ms per step on the host clock (each timed window ends in a
     synchronize): the forward + backward alone with each optimizer's
     capture in ``grads_only``, and each step of ``variants`` ({key: (name,
-    lr, fused, impl, shard)}).  The variants run in turns, the order
-    reversed every round, and each reports its median and range over the
-    rounds."""
+    lr, fused, impl, shard, more options)}).  The variants run in turns, the
+    order reversed every round, and each reports its median and range over
+    the rounds."""
     from repro_torch.core.registry import capture_for
     from repro_torch.train.step import compute_grads_and_stats
 
@@ -1380,10 +1491,10 @@ def _step_times(torch, model, params0, batches, variants, grads_only,
             for batch in batches[:per_round]:
                 compute_grads_and_stats(model, params0, batch, cap)
         runs[f'grads_only_{name}_ms'] = only
-    for key, (name, lr, fused_flag, impl, shard) in variants.items():
+    for key, (name, lr, fused_flag, impl, shard, opt_kw) in variants.items():
         *_, step, params, state = _train(
             torch, model, params0, batches[:3], fused=fused_flag, impl=impl,
-            lr=lr, name=name, shard=shard)
+            lr=lr, name=name, shard=shard, opt_kw=opt_kw)
         carry = {'params': params, 'state': state}
 
         def run(_, step=step, carry=carry):
@@ -1402,11 +1513,11 @@ def _step_times(torch, model, params0, batches, variants, grads_only,
     return {k: _median_spread(v) for k, v in times.items()}
 
 
-def _main_variants():
+def _rank_one_variants(paths):
     return {f'{name}_{"fused" if fused else "composed"}_'
             f'{"cuda" if impl == "auto" else "torch"}_ms':
-            (name, lr, fused, impl, None)
-            for name, (lr, *_) in MAIN_PATHS.items()
+            (name, lr, fused, impl, None, kw)
+            for name, (lr, kw, *_) in paths.items()
             for fused in (False, True) for impl in ('auto', 'torch')}
 
 
@@ -1417,24 +1528,25 @@ def _solver_variants():
             for impl in ('auto', 'torch'):
                 out[f'{name}_shard_{"fused" if fused else "composed"}_'
                     f'{"cuda" if impl == "auto" else "torch"}_ms'] = (
-                    name, lr, fused, impl, shard)
-        out[f'{name}_dense_composed_ms'] = (name, lr, False, 'auto', None)
+                    name, lr, fused, impl, shard, {})
+        out[f'{name}_dense_composed_ms'] = (name, lr, False, 'auto', None, {})
     return out
 
 
 def _profile(torch, model, params0, batches, steps, variants, n):
     """torch.profiler over ``n`` steps of each of ``variants`` ({key:
-    (name, lr, fused, impl, shard)}): device time by kernel (device-side
-    events only, so no op is counted twice) and the device's idle share of
-    the unprofiled median step time ``steps[key]``.  Where the trace holds
-    no device time, says so instead of a number."""
+    (name, lr, fused, impl, shard, more options)}): device time by kernel
+    (device-side events only, so no op is counted twice) and the device's
+    idle share of the unprofiled median step time ``steps[key]``.  Where
+    the trace holds no device time, says so instead of a number."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     out = {}
-    for key, (name, lr, fused_flag, impl, shard) in variants.items():
+    for key, (name, lr, fused_flag, impl, shard, opt_kw) in variants.items():
         *_, step, params, state = _train(torch, model, params0, batches[:3],
                                          fused=fused_flag, impl=impl,
-                                         lr=lr, name=name, shard=shard)
+                                         lr=lr, name=name, shard=shard,
+                                         opt_kw=opt_kw)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
@@ -1465,6 +1577,236 @@ def _profile(torch, model, params0, batches, steps, variants, n):
     return out
 
 
+def _steps_and_profile(torch, model, params0, batches, variants, grads_only,
+                       rounds, per_round, key):
+    """_step_times of ``variants`` and a profile of their kernel-path steps
+    (per_round of each), printed as ``{key}_step_ms`` and
+    ``{key}_profile``."""
+    steps = _step_times(torch, model, params0, batches, variants,
+                        grads_only=grads_only, rounds=rounds,
+                        per_round=per_round)
+    print(json.dumps({f'{key}_step_ms': steps}))
+    cuda = {k: v for k, v in variants.items() if k.endswith('_cuda_ms')}
+    print(json.dumps({f'{key}_profile': _profile(
+        torch, model, params0, batches, steps, cuda, n=per_round)}))
+
+
+# ---------------------------------------------------------------------------
+# 7. the demo transformer LM at full width
+
+
+def lm_setup(torch):
+    """demo_lm('100m') with nothing cut, its weights from a seeded
+    generator, and LM_STEPS batches of LMStream(vocab 32768, 16 x 512)."""
+    from repro_torch.configs.registry import demo_lm
+    from repro_torch.data.synthetic import LMStream
+    from repro_torch.models import module as M
+    from repro_torch.models.registry import build_model
+    cfg = demo_lm('100m')
+    model = build_model(cfg)
+    params0 = M.init_params(model.param_specs(),
+                            torch.Generator().manual_seed(0), device='cuda')
+    n_params = sum(v.numel() for v in params0.values())
+    require(n_params == LM_PARAMS, f'demo-100m has {n_params} parameters')
+    t0 = time.perf_counter()
+    data = LMStream(**LM_STREAM, device='cuda')
+    t1 = time.perf_counter()
+    batches = [data.batch_at(i) for i in range(LM_STEPS)]
+    t2 = time.perf_counter()
+    print(f'  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, '
+          f'{cfg.n_heads} heads ({cfg.n_kv_heads} KV), d_ff {cfg.d_ff}, vocab '
+          f'{cfg.vocab}, remat {cfg.remat}; {n_params} parameters; LMStream '
+          f'chain built in {t1 - t0:.1f} s, {LM_STEPS} batches in '
+          f'{t2 - t1:.1f} s; bigram CE floor {data.bigram_ce:.4f}, uniform '
+          f'{data.uniform_ce:.4f}', flush=True)
+    return model, params0, batches
+
+
+def _lm_learns(torch, model, params0, params, batch, tag):
+    """The loss on the run's first batch, before and after the run; the
+    run must have lowered it.  (Each step's loss is on a batch of its own,
+    and a few steps from a random start can rise with the batch.)"""
+    with torch.no_grad():
+        before = model.loss_fn(params0, None, batch, None)[0].item()
+        after = model.loss_fn(params, None, batch, None)[0].item()
+    require(after < before, f'{tag}: the loss on the first batch did not '
+            f'fall ({before} -> {after})')
+    return before, after
+
+
+def _lm_kfac(torch, model, params0, batches, plan, learned):
+    """K-FAC with the head's 32768-wide output side sharded (CG, 32 band
+    products a step through matvec_cols, every other side dense with its
+    12-deep stacked inverses): LM_KFAC_STEPS steps held by _check_path, and
+    each step's host-clock ms."""
+    from repro_torch.core import factor_sharded as fsh
+    from repro_torch.core import kv as kvlib
+    _, heads = fsh.split_plan(plan, fsh.FactorShardConfig(**LM_SHARD))
+    sharded = {key: pol for key, pol in heads.items() if 'shard' in pol}
+    require(sum(p == 'shard' for pol in heads.values() for p in pol) == 1,
+            f'sharded sides at threshold 32768: {heads}')
+    paths = model.precon_paths()
+
+    def taps_fn(p, b):
+        return kvlib.make_full_taps(p, paths, tuple(b['tokens'].shape))
+    run = batches[:LM_KFAC_STEPS]
+    iters = LM_SHARD['solve_iters']
+    tag = 'lm kfac head-shard'
+    res = _check_path(torch, model, params0, run, name='kfac',
+                      lr=LM_KFAC_LR, fused=False,
+                      want={'matvec_cols': iters * len(run)}, learned=learned,
+                      tag=tag, shard=LM_SHARD, taps_fn=taps_fn)
+    vocab = LM_STREAM['vocab']
+    want_calls = {('matvec_cols', (1, vocab, vocab)): iters * len(run)}
+    require(res['calls'] == want_calls, f'{tag}: calls {res["calls"]}')
+    print(f'  {tag}: sharded {sorted(sharded)}, {iters} matvec_cols a step; '
+          f'host-clock ms a step {[round(x, 1) for x in res["step_ms"]]}',
+          flush=True)
+    info = {k: v for k, v in res.items() if k not in ('launches', 'calls')}
+    info['sharded_buckets'] = sorted(sharded)
+    return res['launches'], {tag: {'matvec_cols': iters}}, info
+
+
+def _grow_cache(model, cache, batch, total):
+    """A cache of ``total`` positions holding ``cache`` at its start."""
+    grown = model.init_cache(batch, total, device='cuda')
+    for k, part in cache['blocks'].items():
+        grown['blocks'][k][:, :, :part.shape[2]] = part
+    return grown
+
+
+def _lm_serving(torch, model, params, batch):
+    """prefill_fn over 15 tokens, the cache grown to 16, decode_fn of the
+    16th token against prefill_fn over all 16 (rtol = atol = SERVE_TOL,
+    the same argmax), then 8 greedy decode steps stay finite."""
+    n, b, gen = 16, 2, 8
+    toks = batch['tokens'][:b, :n].contiguous()
+    full, _ = model.prefill_fn(params, {'tokens': toks})
+    _, cache = model.prefill_fn(params, {'tokens': toks[:, :n - 1]})
+    cache = _grow_cache(model, cache, b, n)
+    got, cache = model.decode_fn(params, cache, toks[:, n - 1], n - 1)
+    err = (got - full).abs()
+    require(bool((err <= SERVE_TOL + SERVE_TOL * full.abs()).all()),
+            f'lm serving: decode vs prefill err {err.max().item():.3e}')
+    require(torch.equal(got.argmax(-1), full.argmax(-1)),
+            'lm serving: decode and prefill disagree on the argmax')
+    cache = _grow_cache(model, cache, b, n + gen)
+    tok, out = got.argmax(-1).to(torch.int32), []
+    for i in range(gen):
+        logits, cache = model.decode_fn(params, cache, tok, n + i)
+        require(bool(torch.isfinite(logits).all()),
+                f'lm serving: decode step {i} not finite')
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(tok.cpu().tolist())
+    info = {'decode_vs_prefill_max_abs': err.max().item(),
+            'greedy_tokens': out}
+    print(f'  serving: decode of token 16 vs prefill over 16: max abs err '
+          f'{err.max().item():.2e} (limit {SERVE_TOL} + {SERVE_TOL} rel), '
+          f'argmax equal; {gen} greedy decode steps finite: {out}',
+          flush=True)
+    return info
+
+
+def lm_phase(torch, rows):
+    """Phase 7: the LM's paths, checked; then the LM's times, added to the
+    kernel rows of phase 6 (and each row's launches on the LM's paths)."""
+    phase('7 lm: demo_lm(100m) at full width, 16 x 512 tokens a step; Eva '
+          'and Eva-f composed and fused, K-FAC with the head sharded, '
+          'serving')
+    from repro_torch.core import bucketing
+    torch.cuda.reset_peak_memory_stats()
+    model, params0, batches = lm_setup(torch)
+    paths = sorted(model.precon_paths())
+    plan = bucketing.build_plan({p: params0[p] for p in paths})
+    # q/o, k/v and gate/up pair up, below the stacking size of 3: each
+    # weight is one call, its 12-deep layer stack folded into one launch
+    require(len(plan.buckets) == 5 and not any(b.stacked
+                                               for b in plan.buckets),
+            f'lm buckets {[(b.key, b.paths) for b in plan.buckets]}')
+
+    def learned(losses, params, tag):
+        return _lm_learns(torch, model, params0, params, batches[0], tag)
+    counts, per_step = main_phase(torch, model, params0, batches, LM_PATHS,
+                                  learned, 'lm')
+    k_counts, k_per_step, kfac = _lm_kfac(torch, model, params0, batches,
+                                          plan, learned)
+    counts = {k: counts[k] + k_counts[k] for k in counts}
+    per_step.update(k_per_step)
+    info = {'lm kfac head-shard': kfac,
+            'serving': _lm_serving(torch, model, params0, batches[0]),
+            'peak_device_gb': torch.cuda.max_memory_allocated() / 1e9}
+    print(f'  peak device memory of the LM paths: '
+          f'{info["peak_device_gb"]:.2f} GB', flush=True)
+    print(json.dumps({'lm_kfac_serving_memory': info}))
+    for row in rows:
+        row['launches'] += counts[row['name']]
+        row['launches_per_step'].update(
+            {tag: c[row['name']] for tag, c in per_step.items()
+             if row['name'] in c})
+    lm_times(torch, rows, model, params0, batches)
+
+
+def _matvec_alone(torch, g, a):
+    """matvec on one stacked G alone (the LM's tall mlp/down, 12 x 2048 x
+    768) beside its einsum: µs per call, 20 calls replayed from one graph,
+    against the byte bound."""
+    from repro_torch.kernels import matvec as mv
+    lead, d_in, d_out = g.shape
+    bound_us = _bound(4 * (g.numel() + a.numel() + lead * d_out + lead),
+                      2 * g.numel())[0] * 1e3
+    graph_us = _graph_ms(torch, lambda: [mv.matvec_and_norm_stacked(g, a)
+                                         for _ in range(20)], 20) * 1e3 / 20
+    lib_us = _graph_ms(torch, lambda: [torch.einsum('...io,...i->...o', g, a)
+                                       for _ in range(20)], 20) * 1e3 / 20
+    return {'shape': 'x'.join(map(str, g.shape)), 'graph_us': graph_us,
+            'library_graph_us': lib_us, 'bound_us': bound_us}
+
+
+def lm_times(torch, rows, model, params0, batches):
+    """Each kernel's calls of one LM step, from a CUDA graph and eager,
+    beside its plain version, its bound and its one-call library
+    equivalent: rows 1-8 one call per weight; row 9 K-FAC's 32 band
+    products of the head, all 32 in each timed run.  Then the LM's
+    host-clock step times and a profile of each kernel-path step."""
+    phase('7 lm times (one step = 8 weights; row 9: one step = 32 band '
+          'products at 768 x 32768 x 32768)')
+    paths = sorted(model.precon_paths())
+    layers = _layer_inputs(torch, [params0[p].shape for p in paths], 300)
+    n = sum(g.numel() for g, *_ in layers)
+    print(f'  G of one LM step: {n} f32 values, {4 * n / 1e6:.2f} MB',
+          flush=True)
+    fns, work = _kernel_fns(torch, layers)
+    out = {name: {'calls_per_step': len(layers),
+                  **_times(torch, *fns[name], work[name], len(layers),
+                           LM_TIME_ITERS)}
+           for name in fns}
+    out['matvec']['tall_g'] = _matvec_alone(
+        torch, *layers[paths.index('blocks/mlp/down/w')][:2])
+    print(f'  matvec alone: {out["matvec"]["tall_g"]}', flush=True)
+    del layers, fns
+    # row 9: the head's 768 rows against its symmetric 32768 x 32768 output
+    # factor, a step's 32 calls in each run (about 1 s): one warm-up run
+    # and one run a repeat
+    d_model, vocab = params0['lm_head/w'].shape
+    reps = LM_SHARD['solve_iters']
+    gen = torch.Generator(device='cuda').manual_seed(400)
+    g = torch.randn((vocab, vocab), generator=gen, device='cuda')
+    g = (g + g.T) / 2
+    a = torch.randn((d_model, vocab), generator=gen, device='cuda')
+    fns, work = _cols_fns(torch, [(g, a)], reps)
+    out['matvec_cols'] = {'calls_per_step': reps,
+                          **_times(torch, *fns, work, reps, 1, warmup=1,
+                                   host_reps=1)}
+    del g, a, fns
+    for row in rows:
+        if row['name'] in out:
+            row['lm'] = out[row['name']]
+            _print_times(row['name'], out[row['name']])
+    _steps_and_profile(torch, model, params0, batches,
+                       _rank_one_variants(LM_PATHS), list(LM_PATHS),
+                       rounds=3, per_round=3, key='lm')
+
+
 def main() -> None:
     if not (SRC / 'repro_torch' / 'kernels' / 'csrc').is_dir():
         fail(f'no src/repro_torch beside {Path(__file__).name}: run it from '
@@ -1476,12 +1818,16 @@ def main() -> None:
     build_phase()
     err = kernels_phase(torch)
     model, params0, batches = ae_setup(torch)
-    counts, per_step = main_phase(torch, model, params0, batches)
+    phase('4 main path: Eva, Eva-f and Eva-s on the full-width autoencoder')
+    counts, per_step = main_phase(torch, model, params0, batches, MAIN_PATHS,
+                                  _falls, 'ae')
     s_counts, s_per_step = solver_phase(torch, model, params0, batches)
     counts = {k: counts[k] + s_counts[k] for k in counts}
     per_step.update(s_per_step)
     stacked_phase(torch)
     rows = times_phase(torch, err, counts, per_step, model, params0, batches)
+    del model, params0, batches
+    lm_phase(torch, rows)
     print(f'total {time.perf_counter() - t0:.1f} s after device check')
     print(json.dumps({'kernels': rows}))
     print(smi)

@@ -159,9 +159,13 @@ def finalize_stats(forward: dict[str, LayerStats],
                    capture: CaptureConfig,
                    n_tokens=None) -> dict[str, LayerStats]:
     """Merge forward stats with the tap gradients.  For vector taps the
-    gradient *is* b̄.  For full taps it is the per-token cotangent z̃
-    (lead..., tokens..., d_out): B = n Σ_t z̃_t z̃_tᵀ over the token axes only
-    (n = ``n_tokens``, else the token count) and b̄ = Σ_t z̃_t."""
+    gradient *is* b̄; where ``count`` has lead dims (a layer stack, or
+    per-expert counts) b̄ is rescaled per lead item by ``n_tokens /
+    max(count, 1)``, as in the reference (exactly 1 for a layer stack that
+    saw every token).  For full taps the gradient is the per-token
+    cotangent z̃ (lead..., tokens..., d_out): B = n Σ_t z̃_t z̃_tᵀ over the
+    token axes only (n = ``n_tokens``, else the token count) and
+    b̄ = Σ_t z̃_t."""
     out = {}
     for path, st in forward.items():
         b_mean = b_outer = None
@@ -169,6 +173,10 @@ def finalize_stats(forward: dict[str, LayerStats],
             tg = tap_grads[path]
             if capture.b == 'mean':
                 b_mean = tg.to(F32)
+                if (st.count is not None and st.count.dim() >= 1
+                        and n_tokens is not None):
+                    scale = n_tokens / torch.clamp(st.count, min=1.0)
+                    b_mean = b_mean * scale[..., None]
             elif capture.b == 'outer':
                 # the leading stack dims survive; their count comes from the
                 # forward stats of the same layer, as in the reference

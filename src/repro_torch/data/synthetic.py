@@ -4,6 +4,10 @@
 The generators are numpy inside, the same code as the reference, so
 ``batch_at(step)`` gives byte-identical batches; they come back as torch
 tensors on the stream's ``device`` (default ``'cuda'``).
+
+* ``LMStream``   — token sequences from a fixed random bigram chain.
+* ``AEStream``   — MNIST-like [0,1] images: smooth random low-rank blobs.
+* ``ClassStream``— gaussian-blob classification.
 """
 from __future__ import annotations
 
@@ -13,6 +17,73 @@ import numpy as np
 import torch
 
 from repro_torch.device import resolve_device
+
+# LMStream builds its vocab x vocab chain this many table entries at a time
+_BLOCK_ENTRIES = 1 << 22
+
+
+@dataclasses.dataclass
+class LMStream:
+    """Token sequences from a fixed random bigram chain: int32 ``tokens``
+    and next-token ``labels``, (batch, seq_len) each.
+
+    The chain is the reference's, built in blocks of rows: the same Gumbel
+    draws in the same order, and each row normalized and summed as the
+    reference does, so the CDF table ``_cum`` holds the reference's bytes.
+    Only ``_cum`` stays (vocab² float64: 8.6 GB at vocab 32768, where the
+    reference holds a second table of the same size); the chain's entropy
+    is taken block by block as it is built."""
+    vocab: int
+    seq_len: int
+    batch: int
+    seed: int = 0
+    concentration: float = 0.3   # lower = peakier bigrams = more learnable
+    device: str = 'cuda'
+
+    def __post_init__(self):
+        rng = np.random.default_rng(self.seed)
+        v = self.vocab
+        self._cum = np.empty((v, v), np.float64)
+        entropy = np.empty(v, np.float64)
+        rows = max(1, _BLOCK_ENTRIES // v)
+        for r0 in range(0, v, rows):
+            r1 = min(r0 + rows, v)
+            # the reference's expressions, each elementwise step in place
+            probs = rng.gumbel(size=(r1 - r0, v))
+            probs /= self.concentration
+            probs -= probs.max(-1, keepdims=True)
+            np.exp(probs, out=probs)
+            probs /= probs.sum(-1, keepdims=True)
+            np.cumsum(probs, axis=-1, out=self._cum[r0:r1])
+            logp = np.maximum(probs, 1e-12)
+            np.log(logp, out=logp)
+            logp *= probs
+            entropy[r0:r1] = -logp.sum(-1)
+        self._bigram_ce = float(entropy.mean())
+
+    def batch_at(self, step: int) -> dict:
+        rng = np.random.default_rng((self.seed, step))
+        toks = np.empty((self.batch, self.seq_len + 1), np.int32)
+        toks[:, 0] = rng.integers(0, self.vocab, self.batch)
+        u = rng.random((self.batch, self.seq_len))
+        # vectorized bigram sampling: invert the per-row CDF
+        for t in range(self.seq_len):
+            rows = self._cum[toks[:, t]]                   # (B, V)
+            toks[:, t + 1] = (rows < u[:, t:t + 1]).sum(-1)
+        dev = resolve_device(self.device)
+        return {'tokens': torch.from_numpy(
+                    np.ascontiguousarray(toks[:, :-1])).to(dev),
+                'labels': torch.from_numpy(
+                    np.ascontiguousarray(toks[:, 1:])).to(dev)}
+
+    @property
+    def uniform_ce(self) -> float:
+        return float(np.log(self.vocab))
+
+    @property
+    def bigram_ce(self) -> float:
+        """Entropy of the generating chain — the achievable CE floor."""
+        return self._bigram_ce
 
 
 @dataclasses.dataclass

@@ -2,16 +2,16 @@
 ``repro/models/module.py``.
 
 Parameters are flat dicts of tensors keyed by the reference's paths
-(``'fc0/w'``), in the reference's (d_in, d_out) weight layout.  Weights come
-from an explicit ``torch.Generator`` (``init_params``) or, to compare with
-the reference, from its own ``init_params`` output as numpy
-(``params_from_numpy``).
+(``'fc0/w'``, ``'blocks/attn/q/w'``), in the reference's (d_in, d_out)
+weight layout.  Weights come from an explicit ``torch.Generator``
+(``init_params``) or, to compare with the reference, from its own
+``init_params`` output as numpy (``params_from_numpy``).
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any
+from typing import Any, Optional
 
 import numpy as np
 import torch
@@ -22,14 +22,16 @@ from repro_torch.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """Shape, dtype and initializer of one parameter.  The reference's
-    logical sharding axes and stddev override are not ported."""
+    """Shape, dtype, initializer and stddev override of one parameter.  The
+    reference's logical sharding axes are not ported."""
     shape: tuple[int, ...]
     dtype: Any = torch.float32
-    init: str = 'scaled'          # scaled | zeros
+    init: str = 'scaled'          # scaled | normal | zeros | ones
+    scale: Optional[float] = None  # stddev override
 
 
-def flatten_specs(specs: Any, prefix: str = '') -> dict[str, ParamSpec]:
+def flatten_specs(specs: Any, prefix: str = '') -> dict[str, Any]:
+    """Nested dict -> {'a/b/c': leaf}; a flat dict maps to itself."""
     out = {}
     if isinstance(specs, dict):
         for k, v in specs.items():
@@ -40,15 +42,47 @@ def flatten_specs(specs: Any, prefix: str = '') -> dict[str, ParamSpec]:
     return out
 
 
+def stack_specs(specs: Any, n: int) -> Any:
+    """Add a leading stacked dim of ``n`` (the layer stack)."""
+    if isinstance(specs, dict):
+        return {k: stack_specs(v, n) for k, v in specs.items()}
+    return dataclasses.replace(specs, shape=(n,) + tuple(specs.shape))
+
+
+def count_params(specs: Any) -> int:
+    return sum(math.prod(s.shape) for s in flatten_specs(specs).values())
+
+
+def subtree(tree: Optional[dict], prefix: str) -> Optional[dict]:
+    """Entries of a flat '/'-keyed dict under ``prefix``, keyed relative to
+    it; None when there are none."""
+    if tree is None:
+        return None
+    pfx = prefix + '/'
+    out = {k[len(pfx):]: v for k, v in tree.items() if k.startswith(pfx)}
+    return out or None
+
+
+def add_prefix(tree: Optional[dict], prefix: str) -> dict:
+    if not tree:
+        return {}
+    return {f'{prefix}/{k}': v for k, v in tree.items()}
+
+
 def _init_one(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
     if spec.init == 'zeros':
         return torch.zeros(spec.shape, dtype=spec.dtype)
-    if spec.init == 'scaled':  # fan-in scaled (1/sqrt(d_in) over dim -2)
+    if spec.init == 'ones':
+        return torch.ones(spec.shape, dtype=spec.dtype)
+    if spec.init == 'normal':
+        std = spec.scale if spec.scale is not None else 0.02
+    elif spec.init == 'scaled':  # fan-in scaled (1/sqrt(d_in) over dim -2)
         fan_in = spec.shape[-2] if len(spec.shape) >= 2 else spec.shape[-1]
-        std = 1.0 / math.sqrt(fan_in)
-        x = torch.randn(spec.shape, generator=gen, dtype=torch.float32) * std
-        return x.to(spec.dtype)
-    raise ValueError(f'init {spec.init!r} is not ported; have scaled, zeros')
+        std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
+    else:
+        raise ValueError(f'unknown init {spec.init!r}')
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32) * std
+    return x.to(spec.dtype)
 
 
 def init_params(specs: Any, generator: torch.Generator,
@@ -61,13 +95,13 @@ def init_params(specs: Any, generator: torch.Generator,
     return {p: _init_one(flat[p], generator).to(dev) for p in sorted(flat)}
 
 
-def params_from_numpy(flat: dict[str, np.ndarray],
-                      device) -> dict[str, torch.Tensor]:
-    """The port's parameters from ``{path: array}`` (e.g. the reference's
-    ``init_params`` output, flattened and converted to numpy)."""
+def params_from_numpy(tree: dict, device) -> dict[str, torch.Tensor]:
+    """The port's flat parameters from ``{path: array}`` or from a nested
+    tree of arrays (the reference's ``init_params`` output as it comes,
+    flattened here to '/'-joined paths such as ``'blocks/attn/q/w'``)."""
     dev = resolve_device(device)
     return {p: torch.from_numpy(np.array(v, copy=True)).to(dev)
-            for p, v in sorted(flat.items())}
+            for p, v in sorted(flatten_specs(tree).items())}
 
 
 def params_to_numpy(params: dict[str, torch.Tensor]) -> dict[str, np.ndarray]:
