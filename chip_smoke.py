@@ -81,6 +81,26 @@ Phases; any failure stops the run with a non-zero exit:
               graph and eager, beside its plain version, bound and library
               call; matvec alone on the tall G (mlp/down, 12 x 2048 x 768);
               step times and a profile of each step.
+8. rest     — the rest of the optimizer set and the trainer.  8a: on the
+              full-width autoencoder, 20 steps each of FOOF (composed,
+              fused, every 10 steps), M-FAC (m=32), AdamW, Adagrad, and
+              K-FAC and Eva under warmup_then_k(5, 10): finite, falling
+              losses; the first 3 card steps within 1e-4 of the same steps
+              on this machine's CPU; the skip steps of FOOF@10 and K-FAC
+              launch no dense inverse.  8b: Eva composed and fused and Eva-f
+              fused under adaptive(0.05) and warmup_then_k(5, 10) through
+              the kernels, each step held to the plain step from the same
+              state, the refresh counts printed.  8c: Trainer.fit of
+              demo-100m (Eva fused under adaptive(0.05)) over a MemmapLM
+              corpus from phase 7's LMStream behind a Prefetcher,
+              checkpoints every 4 steps: 12 steps unbroken against 6 steps,
+              then a fresh Trainer resuming from step 4 to 12, equal bit for
+              bit under torch.use_deterministic_algorithms; every record
+              validates; fit's step ms, the checkpoint's bytes and save and
+              restore rates, the prefetcher's host ms.  8d: the paper's
+              Table 5 on demo-100m (SGD, Eva, Eva-f, FOOF, AdamW, M-FAC
+              m=8): step ms, optimizer-state bytes and peak device memory,
+              each beside SGD's.
 
 The line before the card line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -171,6 +191,39 @@ LM_KFAC_LR = 0.05
 LM_KFAC_STEPS = 3
 LM_TIME_ITERS = 20
 SERVE_TOL = 2e-2                            # tests/test_serving_consistency.py
+LM_WEIGHTS = 8          # preconditioned weights of demo-100m, a call each
+# phase 8a: tag -> (optimizer, lr of benchmarks/fig4_autoencoder.py's
+# LRS.get(name, 0.1), adamw's of tests/test_optimizers.py, more options,
+# fused, a skip step whose device kernels are read or None).  Two lrs are
+# lower, because these runs diverge at the named ones on this full-width
+# autoencoder, on the CPU as on the card: foof@10 at 0.1 (rising from two
+# steps after its second refresh) and mfac at 0.01 (off the history's span
+# its step is 1/λ = 1000x the gradient)
+WARMUP_THEN_K = ('warmup_then_k', dict(warmup=5, k=10))
+REST_PATHS = {
+    'foof': ('foof', 0.1, {}, False, None),
+    'foof fused': ('foof', 0.1, {}, True, None),
+    'foof@10': ('foof', 0.05, {'interval': 10}, False, 1),
+    'mfac m=32': ('mfac', 1e-3, {'m': 32}, False, None),
+    'adamw': ('adamw', 1e-3, {}, False, None),
+    'adagrad': ('adagrad', 0.05, {}, False, None),
+    'kfac warmup_then_k(5,10)': ('kfac', 0.15, {'policy': WARMUP_THEN_K},
+                                 False, 6),
+    'eva warmup_then_k(5,10)': ('eva', 0.15, {'policy': WARMUP_THEN_K},
+                                False, None),
+}
+REST_CPU_STEPS = 3      # card steps held to the same steps on the CPU
+# phase 8b: the snapshot policies through the kernels
+POLICY_PATHS = [('adaptive', dict(threshold=0.05)), WARMUP_THEN_K]
+# phase 8c: Trainer.fit of demo-100m, Eva fused under adaptive(0.05)
+FIT_STEPS, FIT_CUT, FIT_BATCH, FIT_SEQ = 12, 6, 16, 512
+FIT_THRESHOLD = 0.05
+FIT_FALLBACK_RTOL = 1e-6    # only should an op lack a deterministic form
+# phase 8d: benchmarks/table5_itertime.py's set and lr on demo-100m
+TABLE5_OPTS = {'sgd': {}, 'eva': {}, 'eva_f': {}, 'foof': {}, 'adamw': {},
+               'mfac': {'m': 8}}
+TABLE5_LR = 0.01
+TABLE5_WARMUP, TABLE5_ROUNDS, TABLE5_PER_ROUND, TABLE5_BATCHES = 2, 3, 3, 4
 
 
 def fail(msg: str):
@@ -611,6 +664,10 @@ def _make_opt(name, lr, fused, impl, shard=None, interval=1, opt_kw=None):
     if name in MAIN_PATHS:
         opt, cap = make_optimizer(name, lr=lr, fused=fused, kernel_impl=impl,
                                   **opt_kw)
+        return opt, cap, None
+    if name not in ('kfac', 'shampoo', 'foof'):
+        # the first-order chains and M-FAC: no fused tail, no interval
+        opt, cap = make_optimizer(name, lr=lr, **opt_kw)
         return opt, cap, None
     opt, cap = make_optimizer(name, lr=lr, fused=fused, interval=interval,
                               **opt_kw)
@@ -1589,6 +1646,7 @@ def _steps_and_profile(torch, model, params0, batches, variants, grads_only,
     cuda = {k: v for k, v in variants.items() if k.endswith('_cuda_ms')}
     print(json.dumps({f'{key}_profile': _profile(
         torch, model, params0, batches, steps, cuda, n=per_round)}))
+    return steps
 
 
 # ---------------------------------------------------------------------------
@@ -1613,13 +1671,17 @@ def lm_setup(torch):
     t1 = time.perf_counter()
     batches = [data.batch_at(i) for i in range(LM_STEPS)]
     t2 = time.perf_counter()
+    # phase 8's corpus: FIT_STEPS batches' sequences of FIT_SEQ + 1 tokens
+    seqs = [torch.cat([b['tokens'], b['labels'][:, -1:]], 1).cpu()
+            for b in (data.batch_at(i) for i in range(FIT_STEPS))]
+    corpus = torch.cat(seqs).reshape(-1).numpy()
     print(f'  {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, '
           f'{cfg.n_heads} heads ({cfg.n_kv_heads} KV), d_ff {cfg.d_ff}, vocab '
           f'{cfg.vocab}, remat {cfg.remat}; {n_params} parameters; LMStream '
           f'chain built in {t1 - t0:.1f} s, {LM_STEPS} batches in '
           f'{t2 - t1:.1f} s; bigram CE floor {data.bigram_ce:.4f}, uniform '
           f'{data.uniform_ce:.4f}', flush=True)
-    return model, params0, batches
+    return model, params0, batches, corpus
 
 
 def _lm_learns(torch, model, params0, params, batch, tag):
@@ -1715,7 +1777,7 @@ def lm_phase(torch, rows):
           'serving')
     from repro_torch.core import bucketing
     torch.cuda.reset_peak_memory_stats()
-    model, params0, batches = lm_setup(torch)
+    model, params0, batches, corpus = lm_setup(torch)
     paths = sorted(model.precon_paths())
     plan = bucketing.build_plan({p: params0[p] for p in paths})
     # q/o, k/v and gate/up pair up, below the stacking size of 3: each
@@ -1743,7 +1805,8 @@ def lm_phase(torch, rows):
         row['launches_per_step'].update(
             {tag: c[row['name']] for tag, c in per_step.items()
              if row['name'] in c})
-    lm_times(torch, rows, model, params0, batches)
+    steps = lm_times(torch, rows, model, params0, batches)
+    return corpus, steps['eva_fused_cuda_ms']['median']
 
 
 def _matvec_alone(torch, g, a):
@@ -1802,9 +1865,441 @@ def lm_times(torch, rows, model, params0, batches):
         if row['name'] in out:
             row['lm'] = out[row['name']]
             _print_times(row['name'], out[row['name']])
-    _steps_and_profile(torch, model, params0, batches,
-                       _rank_one_variants(LM_PATHS), list(LM_PATHS),
-                       rounds=3, per_round=3, key='lm')
+    return _steps_and_profile(torch, model, params0, batches,
+                              _rank_one_variants(LM_PATHS), list(LM_PATHS),
+                              rounds=3, per_round=3, key='lm')
+
+
+# ---------------------------------------------------------------------------
+# 8. the rest of the optimizer set, the snapshot policies, Trainer.fit
+
+
+def _sched_count(state):
+    from repro_torch.schedule.runtime import schedule_metrics
+    m = schedule_metrics(state)
+    return int(m['refreshes']) if m else None
+
+
+def _opt8(name, lr, fused, opt_kw):
+    """``_make_opt`` for phase 8: ``opt_kw`` may carry an ``interval`` and a
+    ``policy`` as (registry name, its options)."""
+    from repro_torch.schedule.policy import named_policy
+    opt_kw = dict(opt_kw)
+    interval = opt_kw.pop('interval', 1)
+    if 'policy' in opt_kw:
+        opt_kw['policy'] = named_policy(opt_kw['policy'][0],
+                                        **opt_kw['policy'][1])
+    return _make_opt(name, lr, fused, 'auto', interval=interval,
+                     opt_kw=opt_kw)
+
+
+def _run_on(torch, model, params0, batches, device, name, lr, opt_kw,
+            fused=False):
+    """Losses and parameters after a step on each batch, every tensor on
+    ``device`` (the kernels on the card, their plain versions on the
+    CPU)."""
+    from repro_torch.train.step import init_opt_state, make_train_step
+    opt, cap, _ = _opt8(name, lr, fused, opt_kw)
+    params = {k: v.to(device) for k, v in params0.items()}
+    batches = [{k: v.to(device) for k, v in b.items()} for b in batches]
+    state = init_opt_state(model, opt, cap, params, batches[0],
+                           device=device)
+    step = make_train_step(model, opt, cap, device=device)
+    losses = []
+    for batch in batches:
+        params, state, met = step(params, state, batch)
+        losses.append(met['loss'])
+    return torch.stack(losses).cpu().tolist(), params, state
+
+
+def _skip_step_kernels(torch, model, params0, batches, name, lr, opt_kw,
+                       skip_at):
+    """The profiler's device kernels of step ``skip_at`` (a skip step of
+    the policy) and of step 0 (a refresh step): the skip step launches no
+    dense inverse."""
+    from repro_torch.train.step import init_opt_state, make_train_step
+    opt, cap, _ = _opt8(name, lr, False, opt_kw)
+    step = make_train_step(model, opt, cap, device='cuda')
+    state = init_opt_state(model, opt, cap, params0, batches[0],
+                           device='cuda')
+    k_refresh, params, state = _step_device_kernels(torch, step, params0,
+                                                    state, batches[0])
+    for batch in batches[1:skip_at]:
+        params, state, _ = step(params, state, batch)
+    k_skip, _, state = _step_device_kernels(torch, step, params, state,
+                                            batches[skip_at])
+    dense_refresh = _dense_refresh_kernels(k_refresh)
+    dense_skip = _dense_refresh_kernels(k_skip)
+    require(dense_refresh, f'{name} {opt_kw}: no dense inverse kernel in its '
+            f'refresh step: {sorted(k_refresh)[:20]}')
+    require(not dense_skip, f'{name} {opt_kw}: skip step {skip_at} launched '
+            f'{dense_skip}')
+    return {'refresh_step_dense_kernels': len(dense_refresh),
+            'skip_step': skip_at,
+            'skip_step_device_kernels': sum(k_skip.values()),
+            'refresh_step_device_kernels': sum(k_refresh.values())}
+
+
+def rest_phase(torch, model, params0, batches):
+    """8a: each optimizer of REST_PATHS for STEPS steps on the full-width
+    autoencoder: finite, falling losses; the first REST_CPU_STEPS steps on
+    the card within TRAJ_RTOL of the same steps on this machine's CPU; the
+    skip steps of the explicit-inverse methods under a counter policy
+    launch no dense inverse.  Returns the launch counts and per-step
+    launches."""
+    phase('8a the rest of the optimizer set on the full-width autoencoder')
+    from repro_torch.kernels import launches
+    counts = {k: 0 for k in launches.COUNTS}
+    per_step, info = {}, {}
+    for tag, (name, lr, opt_kw, fused, skip_at) in REST_PATHS.items():
+        launches.reset()
+        t0 = time.perf_counter()
+        losses, params, state = _run_on(torch, model, params0, batches,
+                                        'cuda', name, lr, opt_kw, fused)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = launches.snapshot()
+        for k, v in got.items():
+            counts[k] += v
+        per_step[f'ae {tag}'] = {k: v // len(batches)
+                                 for k, v in got.items() if v}
+        _finite_and_falling(losses, f'ae {tag}')
+        refreshes = _sched_count(state)
+        del params, state
+        n = REST_CPU_STEPS
+        cpu, _, _ = _run_on(torch, model, params0, batches[:n], 'cpu', name,
+                            lr, opt_kw, fused)
+        _compare_trajectories(losses[:n], cpu, f'ae {tag} card vs cpu')
+        rel = max(abs(k - p) / abs(p) for k, p in zip(losses[:n], cpu))
+        row = {'losses': losses, 'launches': {k: v for k, v in got.items()
+                                              if v},
+               'refreshes': refreshes, 'seconds': secs,
+               'max_rel_loss_diff_to_cpu': rel}
+        if skip_at is not None:
+            row.update(_skip_step_kernels(torch, model, params0, batches,
+                                          name, lr, opt_kw, skip_at))
+        info[tag] = row
+        print(f'  {tag}: loss {losses[0]:.6f} -> {losses[-1]:.6f}; '
+              f'launches {row["launches"]}; refreshes {refreshes}; first '
+              f'{n} steps vs cpu max rel {rel:.2e}'
+              + ('' if skip_at is None else
+                 f'; skip step {skip_at}: {row["skip_step_device_kernels"]} '
+                 f'device kernels, no dense inverse (refresh step: '
+                 f'{row["refresh_step_dense_kernels"]} inverse kernel '
+                 f'names)'), flush=True)
+    print(json.dumps({'rest_checks': info}))
+    return counts, per_step
+
+
+def policy_phase(torch, model, params0, batches):
+    """8b: Eva composed and fused and Eva-f fused under each policy of
+    POLICY_PATHS through the kernels: the launches, the refresh count,
+    finite losses, and each step within PARAM_RTOL of the plain step from
+    the same state (_compare_steps)."""
+    phase('8b snapshot policies through the kernels on the autoencoder')
+    from repro_torch.kernels import launches
+    from repro_torch.schedule.policy import named_policy
+    counts = {k: 0 for k in launches.COUNTS}
+    per_step, info = {}, {}
+    calls = len(model.precon_paths()) * len(batches)
+    for pol_args in POLICY_PATHS:
+        for name, fused in (('eva', False), ('eva', True), ('eva_f', True)):
+            lr, kw, composed, fused_names = MAIN_PATHS[name]
+            opt_kw = dict(kw, policy=named_policy(pol_args[0],
+                                                  **pol_args[1]))
+            tag = f'ae {name} fused={fused} {opt_kw["policy"].name}'
+            launches.reset()
+            losses, _, params, state = _train(
+                torch, model, params0, batches, fused=fused, impl='auto',
+                lr=lr, name=name, opt_kw=opt_kw)
+            got = launches.snapshot()
+            want = {k: (calls if k in (fused_names if fused else composed)
+                        else 0) for k in launches.COUNTS}
+            require(got == want, f'{tag}: launches {got} != {want}')
+            for k, v in got.items():
+                counts[k] += v
+            per_step[tag] = {k: v // len(batches) for k, v in got.items()
+                             if v}
+            # finite: a run whose KVs are stale for 9 steps need not fall
+            # in 20 (Eva-f under warmup_then_k(5,10) ends 0.693 -> 0.701)
+            require(all(map(math.isfinite, losses)),
+                    f'{tag}: non-finite loss {losses}')
+            refreshes = _sched_count(state)
+            require(1 <= refreshes <= len(batches), f'{tag}: {refreshes}')
+            pre = state.inner[0]
+            require((pre.cached is None) == (pol_args[0] == 'adaptive'),
+                    f'{tag}: the applied tree is kept twice or not at all')
+            del params, state
+            prel = _compare_steps(torch, model, params0, batches, fused=fused,
+                                  lr=lr, name=name, what=tag, opt_kw=opt_kw)
+            info[tag] = {'losses': losses, 'refreshes': refreshes,
+                         'step_change_vs_plain': prel}
+            print(f'  {tag}: refreshes {refreshes} of {len(batches)}; loss '
+                  f'{losses[0]:.6f} -> {losses[-1]:.6f}; step change vs '
+                  f'plain {prel:.2e} of its norm', flush=True)
+    print(json.dumps({'policy_checks': info}))
+    return counts, per_step
+
+
+def _tree_bytes(tree):
+    from repro_torch.core.transform import tree_leaves
+    return sum(x.numel() * x.element_size() for x in tree_leaves(tree))
+
+
+def _dir_bytes(path):
+    return sum(f.stat().st_size for f in Path(path).rglob('*') if f.is_file())
+
+
+def _fit_run(torch, model, params0, data_path, out_dir, total):
+    """One Trainer.fit of demo-100m with Eva fused through the kernels
+    under adaptive(0.05), over MemmapLM behind a Prefetcher.  Returns
+    (params, state, history, prefetcher host ms per batch)."""
+    from repro_torch.core.registry import make_optimizer
+    from repro_torch.data.memmap_loader import MemmapLM
+    from repro_torch.data.pipeline import Prefetcher
+    from repro_torch.schedule.policy import adaptive
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    lr, kw, *_ = LM_PATHS['eva']
+    opt, cap = make_optimizer('eva', lr=lr, fused=True,
+                              policy=adaptive(FIT_THRESHOLD), **kw)
+    cfg = TrainerConfig(total_steps=total, log_every=1, ckpt_every=4,
+                        keep_ckpts=2, out_dir=str(out_dir))
+    data = Prefetcher(MemmapLM(str(data_path), seq_len=FIT_SEQ,
+                               batch=FIT_BATCH, device='cuda'), depth=2)
+    try:
+        params, state, hist = Trainer(model, opt, cap, cfg,
+                                      device='cuda').fit(params0, data)
+    finally:
+        data.close()
+    return params, state, hist, list(data.host_ms)
+
+
+def _leaves_equal(torch, a, b):
+    from repro_torch.train import checkpoint as ckpt
+    la, lb = ckpt.leaf_paths(a), ckpt.leaf_paths(b)
+    require([p for p, _ in la] == [p for p, _ in lb], 'leaf paths differ')
+    worst, unequal = 0.0, []
+    for (p, x), (_, y) in zip(la, lb):
+        if not torch.equal(x, y):
+            unequal.append(p)
+            if x.is_floating_point():
+                d = (x.double() - y.double()).abs().max().item()
+                worst = max(worst, d / max(y.double().abs().max().item(),
+                                           1e-30))
+            else:
+                worst = float('inf')
+    return unequal, worst
+
+
+def fit_phase(torch, corpus, bare_step_ms):
+    """8c: Trainer.fit on demo-100m at full width, run A unbroken, run B cut
+    at FIT_CUT steps and finished by a fresh Trainer on its out_dir; B's
+    parameters and state equal A's bit for bit (deterministic algorithms on;
+    should an op lack a deterministic CUDA form, it is named and the resume
+    is held to FIT_FALLBACK_RTOL instead).  Every record of A's
+    metrics.jsonl validates.  Returns the launch counts of run A and its
+    launches per step."""
+    phase('8c Trainer.fit: demo_lm(100m), Eva fused under adaptive, '
+          'MemmapLM + Prefetcher, checkpoint every 4, resume')
+    import os
+    import shutil
+    from repro_torch.configs.registry import demo_lm
+    from repro_torch.data.memmap_loader import write_tokens
+    from repro_torch.kernels import launches
+    from repro_torch.models import module as M
+    from repro_torch.models.registry import build_model
+    from repro_torch.obs.events import validate_record
+    from repro_torch.train import checkpoint as ckpt
+    work = ROOT / 'build' / 'smoke_fit'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    write_tokens(work / 'corpus', corpus)
+    model = build_model(demo_lm('100m'))
+    params0 = M.init_params(model.param_specs(),
+                            torch.Generator().manual_seed(0), device='cuda')
+    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
+    torch.use_deterministic_algorithms(True)
+    nondeterministic = None
+    try:
+        launches.reset()
+        pa, sa, ha, host_ms = _fit_run(torch, model, params0,
+                                       work / 'corpus', work / 'a', FIT_STEPS)
+        got = launches.snapshot()
+    except RuntimeError as e:
+        if 'deterministic' not in str(e):
+            raise
+        nondeterministic = str(e).splitlines()[0][:300]
+        print(f'  an op has no deterministic CUDA form: {nondeterministic}',
+              flush=True)
+        torch.use_deterministic_algorithms(False)
+        shutil.rmtree(work / 'a', ignore_errors=True)
+        launches.reset()
+        pa, sa, ha, host_ms = _fit_run(torch, model, params0,
+                                       work / 'corpus', work / 'a', FIT_STEPS)
+        got = launches.snapshot()
+    try:
+        want = {k: (LM_WEIGHTS * FIT_STEPS if k == 'eva_fused' else 0)
+                for k in launches.COUNTS}
+        require(got == want, f'fit A: launches {got} != {want}')
+        kept = ckpt.available_steps(work / 'a' / 'ckpt')
+        require(kept == [8, 12], f'fit A: checkpoints {kept}')
+        _, _, hb_cut, _ = _fit_run(torch, model, params0, work / 'corpus',
+                                   work / 'b', FIT_CUT)
+        require(ckpt.available_steps(work / 'b' / 'ckpt') == [4],
+                'fit B: no checkpoint at step 4')
+        pb, sb, hb, _ = _fit_run(torch, model, params0, work / 'corpus',
+                                 work / 'b', FIT_STEPS)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(len(hb) == FIT_STEPS - 4, f'fit B resumed {len(hb)} steps')
+    require(all(math.isfinite(x) for x in ha), f'fit A losses {ha}')
+    require(ha[:FIT_CUT] == hb_cut, 'fit B before the cut differs from A')
+    unequal_p, worst_p = _leaves_equal(torch, pa, pb)
+    unequal_s, worst_s = _leaves_equal(torch, sa, sb)
+    worst = max(worst_p, worst_s)
+    if nondeterministic is None:
+        require(not unequal_p and not unequal_s and ha[4:] == hb,
+                f'fit: resumed run differs from the unbroken one in '
+                f'{(unequal_p + unequal_s)[:8]} (worst {worst:.3e})')
+    else:
+        require(worst <= FIT_FALLBACK_RTOL, f'fit: resumed run differs by '
+                f'{worst:.3e} of a leaf\'s scale')
+    recs = [json.loads(line) for line in
+            (work / 'a' / 'metrics.jsonl').read_text().splitlines()]
+    bad = [(r, validate_record(r)) for r in recs if validate_record(r)]
+    require(not bad, f'fit A: invalid records {bad[:3]}')
+    steps = [r for r in recs if r['event'] == 'step']
+    require(len(steps) == FIT_STEPS, f'fit A: {len(steps)} step records')
+    fit_ms = [r['step_time_s'] * 1e3 for r in steps]
+    refreshes = steps[-1]['refreshes']
+    # a checkpoint's bytes, and a synchronous save and a restore timed
+    tree = {'params': pa, 'opt_state': sa}
+    n_bytes = _tree_bytes(tree)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ckpt.save(work / 'timed', 1, tree, {'next_step': 1})
+    t_save = time.perf_counter() - t0
+    file_bytes = _dir_bytes(work / 'timed' / 'step_00000001')
+    t0 = time.perf_counter()
+    back, _ = ckpt.restore(work / 'timed', 1, tree, device='cuda')
+    torch.cuda.synchronize()
+    t_restore = time.perf_counter() - t0
+    unequal_r, _ = _leaves_equal(torch, tree, back)
+    require(not unequal_r, f'checkpoint round trip differs in {unequal_r[:4]}')
+    del back, tree, pb, sb
+    info = {
+        'deterministic_algorithms': nondeterministic is None,
+        'nondeterministic_op': nondeterministic,
+        'resume_bit_exact': not unequal_p and not unequal_s,
+        'resume_worst_rel': worst,
+        'losses_a': ha, 'refreshes': refreshes,
+        'fit_step_ms': fit_ms,
+        'fit_step_ms_median_after_first': statistics.median(fit_ms[1:]),
+        'bare_step_ms_phase7': bare_step_ms,
+        'checkpoint_tensor_bytes': n_bytes,
+        'checkpoint_file_bytes': file_bytes,
+        'save_s': t_save, 'save_gb_per_s': file_bytes / t_save / 1e9,
+        'restore_s': t_restore,
+        'restore_gb_per_s': file_bytes / t_restore / 1e9,
+        'prefetch_host_ms_per_batch': _median_spread(host_ms),
+    }
+    print(f'  fit A: {FIT_STEPS} steps, loss {ha[0]:.4f} -> {ha[-1]:.4f}, '
+          f'{refreshes} refreshes; B cut at {FIT_CUT}, resumed from 4: '
+          + ('bit for bit equal' if info['resume_bit_exact'] else
+             f'worst rel {worst:.2e}')
+          + '; fit step ms median '
+          f'{info["fit_step_ms_median_after_first"]:.1f} (phase 7 bare step '
+          f'{bare_step_ms:.1f}); checkpoint '
+          f'{file_bytes / 1e9:.3f} GB, save {t_save:.2f} s '
+          f'({info["save_gb_per_s"]:.2f} GB/s), restore {t_restore:.2f} s '
+          f'({info["restore_gb_per_s"]:.2f} GB/s); prefetcher host ms per '
+          f'batch {info["prefetch_host_ms_per_batch"]}', flush=True)
+    print(json.dumps({'fit_checks': info}))
+    shutil.rmtree(work, ignore_errors=True)
+    return got, {'lm fit eva fused adaptive': {'eva_fused': LM_WEIGHTS}}
+
+
+def table5_phase(torch, corpus):
+    """8d: the paper's Table 5 on demo-100m: each optimizer's step ms (the
+    median of TABLE5_ROUNDS rounds of TABLE5_PER_ROUND steps after
+    TABLE5_WARMUP), its state bytes and the peak device memory of its run,
+    each beside SGD's."""
+    phase('8d Table 5 on demo_lm(100m): step time, state bytes, peak memory')
+    from repro_torch.configs.registry import demo_lm
+    from repro_torch.models import module as M
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.step import init_opt_state, make_train_step
+    model = build_model(demo_lm('100m'))
+    params0 = M.init_params(model.param_specs(),
+                            torch.Generator().manual_seed(0), device='cuda')
+    seqs = torch.from_numpy(corpus[:TABLE5_BATCHES * FIT_BATCH
+                                   * (FIT_SEQ + 1)]).reshape(
+        TABLE5_BATCHES, FIT_BATCH, FIT_SEQ + 1).to(torch.int32).cuda()
+    batches = [{'tokens': s[:, :-1].contiguous(),
+                'labels': s[:, 1:].contiguous()} for s in seqs]
+    out = {}
+    for name, kw in TABLE5_OPTS.items():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        opt, cap, _ = _opt8(name, TABLE5_LR, False, kw)
+        state = init_opt_state(model, opt, cap, params0, batches[0],
+                               device='cuda')
+        step = make_train_step(model, opt, cap, device='cuda')
+        params = params0
+        i = 0
+        for _ in range(TABLE5_WARMUP):
+            params, state, met = step(params, state, batches[i % len(batches)])
+            i += 1
+        torch.cuda.synchronize()
+        rounds = []
+        for _ in range(TABLE5_ROUNDS):
+            t0 = time.perf_counter()
+            for _ in range(TABLE5_PER_ROUND):
+                params, state, met = step(params, state,
+                                          batches[i % len(batches)])
+                i += 1
+            torch.cuda.synchronize()
+            rounds.append((time.perf_counter() - t0) * 1e3 / TABLE5_PER_ROUND)
+        require(math.isfinite(met['loss'].item()), f'table5 {name}: loss')
+        out[name] = {'step_ms': statistics.median(rounds),
+                     'step_ms_rounds': rounds,
+                     'state_bytes': _tree_bytes(state),
+                     'peak_device_gb': torch.cuda.max_memory_allocated() / 1e9}
+        del params, state, step, opt, met
+    sgd = out['sgd']
+    n_param_bytes = _tree_bytes(params0)
+    for name, row in out.items():
+        row['rel_time'] = row['step_ms'] / sgd['step_ms']
+        row['rel_state'] = row['state_bytes'] / sgd['state_bytes']
+        row['state_over_param_bytes'] = row['state_bytes'] / n_param_bytes
+        print(f'  {name}: {row["step_ms"]:.2f} ms a step '
+              f'({row["rel_time"]:.3f}x sgd), state '
+              f'{row["state_bytes"] / 1e9:.3f} GB ({row["rel_state"]:.3f}x '
+              f'sgd, {row["state_over_param_bytes"]:.3f}x the parameters), '
+              f'peak {row["peak_device_gb"]:.2f} GB', flush=True)
+    print(json.dumps({'table5_lm': out}))
+
+
+def rest_phases(torch, rows, corpus, bare_step_ms):
+    """Phase 8 (8a-8d); the launches of its paths go into the kernel
+    rows."""
+    from repro_torch.kernels import launches
+    model, params0, batches = ae_setup(torch)
+    counts, per_step = rest_phase(torch, model, params0, batches)
+    p_counts, p_per_step = policy_phase(torch, model, params0, batches)
+    del model, params0, batches
+    f_counts, f_per_step = fit_phase(torch, corpus, bare_step_ms)
+    for c in (p_counts, f_counts):
+        counts = {k: counts[k] + c.get(k, 0) for k in launches.COUNTS}
+    per_step.update(p_per_step)
+    per_step.update(f_per_step)
+    for row in rows:
+        row['launches'] += counts[row['name']]
+        row['launches_per_step'].update(
+            {tag: c[row['name']] for tag, c in per_step.items()
+             if row['name'] in c})
+    table5_phase(torch, corpus)
 
 
 def main() -> None:
@@ -1827,7 +2322,8 @@ def main() -> None:
     stacked_phase(torch)
     rows = times_phase(torch, err, counts, per_step, model, params0, batches)
     del model, params0, batches
-    lm_phase(torch, rows)
+    corpus, bare_step_ms = lm_phase(torch, rows)
+    rest_phases(torch, rows, corpus, bare_step_ms)
     print(f'total {time.perf_counter() - t0:.1f} s after device check')
     print(json.dumps({'kernels': rows}))
     print(smi)

@@ -52,17 +52,25 @@ def _stats_plan(flat_updates: dict, stats: dict,
                                  if p in flat_updates})
 
 
+def _eva_cached_init(pol, zeros):
+    """The eva family's applied-snapshot slot: None when the policy keeps
+    a snapshot itself (``adaptive``), whose ``SchedState.snapshot`` follows
+    the same ``where(refresh, fresh, old)`` from the same zeros; the tree is
+    stored once, as in the reference."""
+    return None if pol.wants_snapshot else zeros
+
+
 def _refresh_snapshot(pol, sched, stats, cached):
     """The eva family's refresh: the applied KV snapshot is the
     bias-corrected EMA at the last refresh (a ``torch.where`` on a device
     bool, so nothing waits on the card).  Returns ``(applied stats, new
-    SchedState)``; the applied stats are the new ``cached`` slot.  The
-    reference's snapshot-keeping policies are not ported
-    (``schedule.policy.init_state`` refuses them), so the applied tree
-    always lives in ``cached``."""
+    SchedState, new cached slot)``; a snapshot policy reads and keeps the
+    applied tree in ``SchedState.snapshot`` and its cached slot is None."""
     refresh, staleness = pol.decide(sched, stats)
-    used = tree_map(lambda f, c: torch.where(refresh, f, c), stats, cached)
-    return used, schedpol.commit(pol, sched, stats, refresh, staleness)
+    base = sched.snapshot if pol.wants_snapshot else cached
+    used = tree_map(lambda f, c: torch.where(refresh, f, c), stats, base)
+    new_sched = schedpol.commit(pol, sched, stats, refresh, staleness)
+    return used, new_sched, (None if pol.wants_snapshot else used)
 
 
 def _kv_init(params, extras, fields, policy, interval):
@@ -75,7 +83,8 @@ def _kv_init(params, extras, fields, policy, interval):
     zeros = bucketing.gather_tree(
         plan, _zeros_like_spec(_extract(extras.stats, fields)))
     pol = schedrt.from_extras(extras).resolve(policy, interval)
-    return dict(running=kvlib.init_running(zeros), cached=zeros,
+    return dict(running=kvlib.init_running(zeros),
+                cached=_eva_cached_init(pol, zeros),
                 sched=schedpol.init_state(pol, zeros, tree_device(params)))
 
 
@@ -95,8 +104,9 @@ def _kv_step(state, updates, extras, *, fields, policy, interval, kv_decay):
     # bound and it is the identity (sharding/constraints.py::pmean_stats).
     fresh = bucketing.gather_tree(plan, fresh_flat)
     stats, running = kvlib.update_running(state.running, fresh, kv_decay)
-    used, sched = _refresh_snapshot(pol, state.sched, stats, state.cached)
-    return flat, plan, used, dict(running=running, cached=used, sched=sched)
+    used, sched, cached = _refresh_snapshot(pol, state.sched, stats,
+                                            state.cached)
+    return flat, plan, used, dict(running=running, cached=cached, sched=sched)
 
 
 def eva_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,

@@ -19,7 +19,8 @@ from repro_torch.core import bucketing
 from repro_torch.core import kv as kvlib
 from repro_torch.core import precondition as pre
 from repro_torch.core.clipping import finish_graft_ema, graft_to_grad_magnitude
-from repro_torch.core.eva import _refresh_snapshot, _zeros_like_spec
+from repro_torch.core.eva import (_eva_cached_init, _refresh_snapshot,
+                                  _zeros_like_spec)
 from repro_torch.core.transform import (Extras, GradientTransformation,
                                         add_decayed_weights, chain, ema_trace,
                                         scale_by_schedule, tree_device)
@@ -53,7 +54,8 @@ def _kv_init_s(params, extras, policy, interval):
                                + b.shape[-1:], dtype=F32, device=dev))
         for b in plan.buckets}
     pol = schedrt.from_extras(extras).resolve(policy, interval)
-    return dict(running=kvlib.init_running(zeros), cached=zeros,
+    return dict(running=kvlib.init_running(zeros),
+                cached=_eva_cached_init(pol, zeros),
                 sched=schedpol.init_state(pol, zeros, dev))
 
 
@@ -70,8 +72,9 @@ def _kv_step_s(state, updates, extras, *, policy, interval, kv_decay):
         vi, vo = pre.grad_kvs(g_b[b.key])
         fresh[b.key] = kvlib.LayerStats(a_mean=vi, b_mean=vo)
     stats, running = kvlib.update_running(state.running, fresh, kv_decay)
-    used, sched = _refresh_snapshot(pol, state.sched, stats, state.cached)
-    return flat, plan, used, dict(running=running, cached=used, sched=sched)
+    used, sched, cached = _refresh_snapshot(pol, state.sched, stats,
+                                            state.cached)
+    return flat, plan, used, dict(running=running, cached=cached, sched=sched)
 
 
 def eva_s_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,

@@ -1,14 +1,15 @@
 """Sherman–Morrison rank-one preconditioning (Eq. 13, 21, 23) and the
-explicit-inverse baselines (K-FAC Eq. 5, Shampoo Eq. 8) — PyTorch port.
+explicit-inverse baselines (K-FAC Eq. 5, FOOF Eq. 6, Shampoo Eq. 8) —
+PyTorch port.
 
-Counterpart of ``repro/core/precondition.py`` for the methods ``eva``,
-``eva_f``, ``eva_s``, ``kfac``, ``shampoo``, ``kfac_cached`` and
-``shampoo_cached``: weights are (..., d_in, d_out) and every formula
-broadcasts over leading stack dims.  ``impl`` ('auto' | 'cuda' | 'torch',
-see ``kernels/dispatch.py``) picks the Hopper kernels or their plain
-versions for the rank-one methods; the reference's ``impl=None`` inline
-path is the port's ``'torch'`` impl.  The explicit-inverse methods are
-plain PyTorch (``torch.linalg``) in f32.
+Counterpart of ``repro/core/precondition.py`` for every method: ``eva``,
+``eva_f``, ``eva_s``, ``foof``, ``kfac``, ``shampoo`` and the cached forms
+``foof_cached``, ``kfac_cached`` and ``shampoo_cached``: weights are (...,
+d_in, d_out) and every formula broadcasts over leading stack dims.
+``impl`` ('auto' | 'cuda' | 'torch', see ``kernels/dispatch.py``) picks the
+Hopper kernels or their plain versions for the rank-one methods; the
+reference's ``impl=None`` inline path is the port's ``'torch'`` impl.  The
+explicit-inverse methods are plain PyTorch (``torch.linalg``) in f32.
 """
 from __future__ import annotations
 
@@ -22,8 +23,8 @@ from repro_torch.kernels import ops as kops
 
 F32 = torch.float32
 RANK_ONE = ('eva', 'eva_f', 'eva_s')
-PORTED_METHODS = RANK_ONE + ('kfac', 'shampoo', 'kfac_cached',
-                             'shampoo_cached')
+PORTED_METHODS = RANK_ONE + ('foof', 'kfac', 'shampoo', 'foof_cached',
+                             'kfac_cached', 'shampoo_cached')
 
 
 def _f32(x):
@@ -45,7 +46,7 @@ def grad_kvs(g):
 
 
 # ---------------------------------------------------------------------------
-# Explicit-inverse baselines (K-FAC Eq. 5, Shampoo Eq. 8)
+# Explicit-inverse baselines (K-FAC Eq. 5, FOOF Eq. 6, Shampoo Eq. 8)
 
 
 def _damped_solve(m, rhs, gamma):
@@ -87,6 +88,11 @@ def kfac_precondition(g, a_outer, b_outer, gamma: float):
     return right.transpose(-1, -2).to(g.dtype)
 
 
+def foof_precondition(g, a_outer, gamma: float):
+    """(R + γI)^{-1} G: FOOF preconditions the input side only."""
+    return _damped_solve(_f32(a_outer), _f32(g), gamma).to(g.dtype)
+
+
 def _inv_proot_psd(m, gamma, power: float):
     """(M + γI)^{-power} for PSD M through ``torch.linalg.eigh``, batched;
     the eigenvalues are clamped at 0 before the damping is added."""
@@ -125,13 +131,20 @@ def _precondition(method, g, st, gamma, impl, stacked=False):
     ‖ā‖²))/γ; Eva-s has Eva's rank-one form, with the gradient's own
     (v_in, v_out) in the a_mean / b_mean slots.  K-FAC and Shampoo read
     their factors (or, ``*_cached``, the cached operators) from a_outer /
-    b_outer."""
+    b_outer, FOOF its input factor (or cached inverse) from a_outer."""
     if method == 'eva_f':
         return kops.eva_f_precondition(g, st.a_mean, gamma, impl=impl)
     if method in ('eva', 'eva_s'):
         return eva_precondition(g, st.a_mean, st.b_mean, gamma, impl=impl)
+    if method == 'foof_cached':
+        return apply_left(g, st.a_outer)
     if method in ('kfac_cached', 'shampoo_cached'):
         return apply_two_sided(g, st.a_outer, st.b_outer)
+    if method == 'foof':
+        if stacked:
+            return _per_item(lambda *t: foof_precondition(*t, gamma), g,
+                             st.a_outer)
+        return foof_precondition(g, st.a_outer, gamma)
     fn = kfac_precondition if method == 'kfac' else shampoo_precondition
     if stacked:
         return _per_item(lambda *t: fn(*t, gamma), g, st.a_outer,

@@ -108,6 +108,28 @@ def tree_leaves_with_path(tree, prefix: str = '') -> dict[str, Any]:
     return out
 
 
+def key_order(k):
+    """A dict key's place in the reference's leaf order: jax sorts a nested
+    dict's keys level by level, which for the port's '/'-joined paths is
+    the order of their '/'-split segments."""
+    return tuple(k.split('/')) if isinstance(k, str) else (k,)
+
+
+def tree_leaves(tree) -> list:
+    """The tensor leaves in the reference's ``jax.tree_util.tree_leaves``
+    order: dict keys sorted (a '/'-joined path as its nested dicts would
+    sort), NamedTuple fields and sequence entries in order; None subtrees
+    vanish."""
+    if tree is None:
+        return []
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree, key=key_order)
+                for x in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in tree_leaves(v)]
+    return [tree]
+
+
 def tree_device(tree) -> torch.device:
     """The device of the first tensor leaf."""
     return next(iter(tree_leaves_with_path(tree).values())).device
@@ -247,3 +269,61 @@ def clip_by_global_norm(max_norm: float) -> GradientTransformation:
         return tree_map(lambda x: x * s, updates)
 
     return stateless(fn)
+
+
+class AdamState(NamedTuple):
+    mu: Any
+    nu: Any
+    count: torch.Tensor
+
+
+def scale_by_adam(b1: float = 0.9, b2: float = 0.999,
+                  eps: float = 1e-8) -> GradientTransformation:
+    """Adam's bias-corrected m̂ / (√v̂ + ε), the moments in f32."""
+
+    def init(params, extras=None):
+        def z():
+            return tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
+                                                  device=p.device), params)
+        return AdamState(mu=z(), nu=z(),
+                         count=scalar(0, tree_device(params), torch.int32))
+
+    def update(updates, state, params=None, extras=None):
+        del params, extras
+        count = state.count + 1
+        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g.to(F32), state.mu,
+                      updates)
+        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g.to(F32).square(),
+                      state.nu, updates)
+        c = count.to(F32)
+        s_mu = 1.0 / (1 - scalar(b1, c.device) ** c)
+        s_nu = 1.0 / (1 - scalar(b2, c.device) ** c)
+        out = tree_map(lambda m, v: (m * s_mu) / (torch.sqrt(v * s_nu) + eps),
+                       mu, nu)
+        return out, AdamState(mu=mu, nu=nu, count=count)
+
+    return GradientTransformation(init, update)
+
+
+class AdagradState(NamedTuple):
+    accum: Any
+
+
+def scale_by_adagrad(eps: float = 1e-10, initial_accum: float = 0.1
+                     ) -> GradientTransformation:
+    """g / (√(Σ g²) + ε), the sum starting at ``initial_accum``."""
+
+    def init(params, extras=None):
+        return AdagradState(accum=tree_map(
+            lambda p: torch.full(p.shape, initial_accum, dtype=F32,
+                                 device=p.device), params))
+
+    def update(updates, state, params=None, extras=None):
+        del params, extras
+        accum = tree_map(lambda a, g: a + g.to(F32).square(), state.accum,
+                         updates)
+        out = tree_map(lambda g, a: g.to(F32) / (torch.sqrt(a) + eps),
+                       updates, accum)
+        return out, AdagradState(accum=accum)
+
+    return GradientTransformation(init, update)

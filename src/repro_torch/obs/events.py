@@ -1,0 +1,183 @@
+"""Versioned, schema-typed telemetry records and the JSONL ``Recorder`` —
+the port's own copy of the parts of ``repro/obs/events.py`` that the
+trainer emits through.
+
+Every record is one JSON object per line with an ``event`` type and the
+schema version ``v``; every other key is typed by ``SCHEMAS[event]`` and an
+unknown key is an error.  The schemas here are the reference's for the
+records ``Trainer.fit`` emits (``step``, ``refresh``, ``refresh_ownership``,
+``straggler``, ``span`` and ``profile``), so a record the port writes passes
+the reference's validator.  The scheduler's and the sharded factor's step
+fields come from their modules' ``METRIC_FIELDS``.  The comm-counter scope
+of the reference's ``Recorder`` comes with the multi-worker exchange.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+from pathlib import Path
+from typing import Any, Optional
+
+from repro_torch.core import factor_sharded as _fsh
+from repro_torch.schedule import runtime as _schedrt
+
+SCHEMA_VERSION = 1
+
+_NUM = (int, float)
+_INT = (int,)
+_STR = (str,)
+_DICT = (dict,)
+
+
+@dataclasses.dataclass(frozen=True)
+class Field:
+    """One schema field: accepted JSON types, requiredness, display unit."""
+    types: tuple
+    required: bool = False
+    unit: str = ''
+
+
+def _declared(module) -> dict[str, Field]:
+    """METRIC_FIELDS of a producer module -> schema fields."""
+    kinds = {'int': _INT, 'num': _NUM}
+    return {name: Field(kinds[kind], unit=unit)
+            for name, (kind, unit) in module.METRIC_FIELDS.items()}
+
+
+SCHEMAS: dict[str, dict[str, Field]] = {
+    'step': {
+        'step': Field(_INT, required=True, unit='index'),
+        'loss': Field(_NUM, required=True),
+        'grad_norm': Field(_NUM),
+        'step_time_s': Field(_NUM, unit='s'),
+        **_declared(_schedrt),
+        **_declared(_fsh),
+    },
+    'refresh': {
+        'step': Field(_INT, required=True, unit='index'),
+        'refreshes': Field(_INT, required=True, unit='cumulative refreshes'),
+        'step_time_s': Field(_NUM, unit='s'),
+    },
+    'refresh_ownership': {
+        'world': Field(_INT, required=True, unit='workers'),
+        'owners': Field(_DICT, required=True,
+                        unit='bucket -> per-worker slice counts'),
+    },
+    'straggler': {
+        'step': Field(_INT, required=True, unit='index'),
+        'step_time_s': Field(_NUM, required=True, unit='s'),
+        'median_s': Field(_NUM, required=True, unit='s'),
+        'factor': Field(_NUM, unit='trigger threshold x median'),
+    },
+    'span': {
+        'name': Field(_STR, required=True),
+        'ms': Field(_NUM, required=True, unit='ms'),
+        'step': Field(_INT, unit='index'),
+        'seq': Field(_INT, unit='emission order'),
+        'depth': Field(_INT, unit='nesting depth'),
+        'parent': Field(_STR + (type(None),)),
+    },
+    'profile': {
+        'step': Field(_INT, required=True, unit='index'),
+        'live_buffer_mb': Field(_NUM, unit='MiB'),
+        'device_bytes_in_use': Field(_INT, unit='bytes'),
+        'fns': Field(_DICT, unit='fn -> cost summary'),
+    },
+}
+
+
+class SchemaError(ValueError):
+    pass
+
+
+def _check(value, fld: Field, where: str) -> list[str]:
+    # bool is an int subclass in Python; never a valid numeric field here
+    if isinstance(value, bool) or not isinstance(value, fld.types):
+        return [f'{where}: expected {"/".join(t.__name__ for t in fld.types)}'
+                f', got {type(value).__name__} ({value!r})']
+    return []
+
+
+def infer_event(rec: dict) -> Optional[str]:
+    """Event type of a record; an envelope-less step dict counts."""
+    ev = rec.get('event')
+    if ev is None and 'step' in rec and 'loss' in rec:
+        return 'step'
+    return ev
+
+
+def validate_record(rec: Any) -> list[str]:
+    """All schema violations of one record ([] = valid)."""
+    if not isinstance(rec, dict):
+        return [f'record is not an object: {rec!r}']
+    ev = infer_event(rec)
+    if ev is None:
+        return [f'missing event type (keys: {sorted(rec)[:6]})']
+    if ev not in SCHEMAS:
+        return [f'unknown event type {ev!r} (have {sorted(SCHEMAS)})']
+    errs: list[str] = []
+    v = rec.get('v')
+    if v is not None and v != SCHEMA_VERSION:
+        errs.append(f'{ev}: schema version {v} != {SCHEMA_VERSION}')
+    schema = SCHEMAS[ev]
+    for name, fld in schema.items():
+        if fld.required and name not in rec:
+            errs.append(f'{ev}: missing required field {name!r}')
+    for key, value in rec.items():
+        if key in ('event', 'v'):
+            continue
+        fld = schema.get(key)
+        if fld is None:
+            errs.append(f'{ev}: unknown field {key!r}')
+            continue
+        errs += _check(value, fld, f'{ev}.{key}')
+    return errs
+
+
+def step_fields(metrics: dict) -> dict:
+    """Typed host-side step-record fields from the step's metrics (0-d
+    tensors: reading them waits for the card)."""
+    out: dict[str, Any] = {}
+    if 'refreshes' in metrics:
+        out['refreshes'] = int(metrics['refreshes'])
+        out['staleness'] = float(metrics['staleness'])
+        out['refresh_since'] = int(metrics['refresh_since'])
+    if 'factor_solve_iters' in metrics:
+        out['factor_solve_iters'] = int(metrics['factor_solve_iters'])
+        out['factor_shard_bytes'] = float(metrics['factor_shard_bytes'])
+    return out
+
+
+class Recorder:
+    """JSONL sink.  ``emit`` stamps the envelope (``event``, ``v``),
+    validates the record (a malformed record raises at its emit site),
+    appends one line and returns the record.  ``path=None`` keeps the
+    records in memory only."""
+
+    def __init__(self, path: Optional[Any] = None, validate: bool = True):
+        self._f = Path(path).open('a') if path is not None else None
+        self._validate = validate
+        self.records: list[dict] = []
+
+    def emit(self, event: str, **fields: Any) -> dict:
+        rec = {'event': event, 'v': SCHEMA_VERSION, **fields}
+        if self._validate:
+            errs = validate_record(rec)
+            if errs:
+                raise SchemaError('; '.join(errs))
+        self.records.append(rec)
+        if self._f is not None:
+            self._f.write(json.dumps(rec) + '\n')
+            self._f.flush()
+        return rec
+
+    def close(self) -> None:
+        if self._f is not None:
+            self._f.close()
+            self._f = None
+
+    def __enter__(self) -> 'Recorder':
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()

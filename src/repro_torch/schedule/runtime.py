@@ -4,7 +4,8 @@ Counterpart of ``repro/schedule/runtime.py`` for one device and the
 ``'sync'`` pipeline.  :func:`sharded_refresh` keeps the reference's
 single-worker structure (``recompute_single``); the worker-sharded
 recomputation, its owned-slice exchange and the ``'onestep'`` pipeline need
-several workers and are not ported.
+several workers and are not ported.  :func:`schedule_metrics` and
+:func:`ownership_event` are the trainer's view of the refresh.
 """
 from __future__ import annotations
 
@@ -93,3 +94,66 @@ def sharded_refresh(plan: BucketPlan, refresh: bool,
                 for i in range(len(b.paths))]
         out[b.key] = tree_map(lambda *xs: torch.stack(xs), *rows)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Observability
+
+
+def sched_states(opt_state: Any) -> list[policy_mod.SchedState]:
+    """Every SchedState in an optimizer state tree, in walk order."""
+    found: list[policy_mod.SchedState] = []
+
+    def walk(x):
+        if isinstance(x, policy_mod.SchedState):
+            found.append(x)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+
+    walk(opt_state)
+    return found
+
+
+# Step-metric fields this module contributes, declared next to their
+# producer so the telemetry schema (``obs/events.py``) follows the code
+# that emits them: name -> (kind in {'int', 'num'}, unit).
+METRIC_FIELDS = {
+    'refreshes': ('int', 'cumulative refreshes'),
+    'refresh_since': ('int', 'steps since last refresh'),
+    'staleness': ('num', 'policy staleness proxy'),
+}
+
+
+def schedule_metrics(opt_state: Any) -> dict[str, torch.Tensor]:
+    """{'refreshes', 'refresh_since', 'staleness'} over every scheduled
+    transform in the state, as 0-d device tensors (nothing is read back);
+    {} when nothing is scheduled."""
+    sts = sched_states(opt_state)
+    if not sts:
+        return {}
+    refreshes = sts[0].n_refresh
+    for st in sts[1:]:
+        refreshes = refreshes + st.n_refresh
+    return {
+        'refreshes': refreshes,
+        'refresh_since': torch.stack([st.since for st in sts]).max(),
+        'staleness': torch.stack([st.staleness for st in sts]).max(),
+    }
+
+
+def ownership_event(plan: Optional[BucketPlan]) -> Optional[dict]:
+    """The ``refresh_ownership`` record body ({'world', 'owners'}) of a
+    bucket plan in this process: at W = 1 every slice of each bucket is
+    worker 0's, so ``owners`` is {bucket: [slices]}.  None when nothing is
+    preconditioned.  ``world_and_rank`` raises for several workers, whose
+    owner assignment is not ported."""
+    if plan is None or not plan.buckets:
+        return None
+    ownership.world_and_rank()
+    return {'world': 1,
+            'owners': {b.key: [len(b.paths) * ownership.lead_size(b)]
+                       for b in plan.buckets}}

@@ -1,7 +1,8 @@
 """Train-step factory: loss → (grads, tap-grads) → KV stats → optimizer.
 
-PyTorch port of ``compute_grads_and_stats``, ``make_train_step`` and
-``init_opt_state`` in ``repro/train/step.py``.  The step runs eagerly and
+PyTorch port of ``compute_grads_and_stats``, ``make_train_step``,
+``make_phased_step``, ``init_opt_state`` and ``stats_plan_of`` in
+``repro/train/step.py``.  The step runs eagerly and
 returns new parameters and state without touching its inputs.  Nothing in it
 reads a value back to the host, so a step only queues work on the card; the
 caller syncs when it reads a metric.
@@ -100,6 +101,18 @@ def compute_grads_and_stats(model, params: dict, batch: dict,
     return loss.detach(), grads, stats
 
 
+def _step_metrics(loss, grads, new_state) -> dict:
+    """The loss, the gradient norm, the refresh counters
+    (``schedule_metrics``) and, when a factor is sharded,
+    ``factor_sharded.step_metrics``; all 0-d device tensors."""
+    grad_norm = torch.sqrt(sum((g.to(F32) ** 2).sum()
+                               for _, g in sorted(grads.items())))
+    metrics = {'loss': loss, 'grad_norm': grad_norm}
+    metrics.update(schedrt.schedule_metrics(new_state))
+    metrics.update(fsh.step_metrics(new_state))
+    return metrics
+
+
 def _sum_tree(acc, tree):
     return tree if acc is None else tree_map(lambda a, x: a + x, acc, tree)
 
@@ -121,7 +134,8 @@ def make_train_step(model, opt: GradientTransformation,
     scan.  ``sched`` is the refresh runtime and ``factor`` the
     ``core.factor_sharded.FactorShardConfig``, both threaded through
     ``Extras``; None keeps every factor dense.  The metrics hold the loss,
-    the gradient norm and, when a factor is sharded,
+    the gradient norm, the refresh counters of ``schedule_metrics`` (when a
+    transform is scheduled) and, when a factor is sharded,
     ``factor_sharded.step_metrics``.
     """
     dev = resolve_device(device)
@@ -160,13 +174,44 @@ def make_train_step(model, opt: GradientTransformation,
                           plan=_plan_for_stats(grads, stats), sched=sched,
                           factor=factor))
         new_params = apply_updates(params, updates)
-        grad_norm = torch.sqrt(sum((g.to(F32) ** 2).sum()
-                                   for _, g in sorted(grads.items())))
-        metrics = {'loss': loss, 'grad_norm': grad_norm}
-        metrics.update(fsh.step_metrics(new_state))
-        return new_params, new_state, metrics
+        return new_params, new_state, _step_metrics(loss, grads, new_state)
 
     return train_step
+
+
+def make_phased_step(model, opt: GradientTransformation,
+                     capture: kvlib.CaptureConfig,
+                     taps_fn: Optional[Callable] = None,
+                     sched: Optional[schedrt.RefreshRuntime] = None,
+                     factor: Optional[Any] = None,
+                     device='cuda') -> tuple[Callable, Callable, Callable]:
+    """The train step cut at its phase boundaries, for span timing:
+    ``grad_fn(params, batch) -> (loss, grads, stats)``,
+    ``update_fn(grads, stats, loss, opt_state, params) -> (updates,
+    new_state, metrics)`` and ``apply_fn(params, updates) -> new_params``.
+    Their composition is ``make_train_step(microbatches=1)``, bit for bit:
+    the same calls in the same order."""
+    dev = resolve_device(device)
+    sched = sched if sched is not None else schedrt.RefreshRuntime()
+    make_taps = taps_caller(taps_fn)
+
+    def grad_fn(params, batch):
+        batch = _to_device(batch, dev)
+        return compute_grads_and_stats(model, params, batch, capture,
+                                       make_taps(params, batch))
+
+    def update_fn(grads, stats, loss, opt_state, params):
+        updates, new_state = opt.update(
+            grads, opt_state, params=params,
+            extras=Extras(stats=stats, loss=loss,
+                          plan=_plan_for_stats(grads, stats), sched=sched,
+                          factor=factor))
+        return updates, new_state, _step_metrics(loss, grads, new_state)
+
+    def apply_fn(params, updates):
+        return apply_updates(params, updates)
+
+    return grad_fn, update_fn, apply_fn
 
 
 def init_opt_state(model, opt: GradientTransformation,
@@ -189,3 +234,19 @@ def init_opt_state(model, opt: GradientTransformation,
     return opt.init(params, Extras(stats=zero_stats,
                                    plan=_plan_for_stats(params, zero_stats),
                                    sched=sched, factor=factor))
+
+
+def stats_plan_of(model, capture: kvlib.CaptureConfig, params: dict,
+                  batch: dict, taps_fn: Optional[Callable] = None,
+                  device='cuda') -> Optional[bucketing.BucketPlan]:
+    """The bucket plan over the preconditioned paths (the trainer's
+    ownership record is keyed by it).  Where the reference traces the step
+    under ``jax.eval_shape``, this runs one forward and backward pass on the
+    real ``batch`` and keeps only the captured paths; no state is made."""
+    if not capture.active:
+        return None
+    dev = resolve_device(device)
+    batch = _to_device(batch, dev)
+    _, _, stats = compute_grads_and_stats(
+        model, params, batch, capture, taps_caller(taps_fn)(params, batch))
+    return _plan_for_stats(params, stats)

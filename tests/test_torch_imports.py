@@ -32,7 +32,10 @@ def test_no_jax_or_reference_import(path):
 def test_port_files_found():
     names = {p.name for p in PORT_FILES}
     assert {'eva.py', 'step.py', 'dispatch.py', 'chip_smoke.py', 'kfac.py',
-            'shampoo.py', 'factor_sharded.py'} <= names
+            'shampoo.py', 'factor_sharded.py', 'foof.py', 'mfac.py',
+            'firstorder.py', 'policy.py', 'checkpoint.py', 'trainer.py',
+            'memmap_loader.py', 'pipeline.py', 'events.py',
+            'spans.py'} <= names
 
 
 def _no_card():

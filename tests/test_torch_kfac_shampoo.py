@@ -39,6 +39,7 @@ from repro_torch.data import synthetic as tsyn  # noqa: E402
 from repro_torch.kernels import launches  # noqa: E402
 from repro_torch.models import module as M  # noqa: E402
 from repro_torch.models import simple  # noqa: E402
+from repro_torch.schedule import runtime as schedrt  # noqa: E402
 from repro_torch.train.step import init_opt_state, make_train_step  # noqa
 
 RTOL, ATOL = 1e-4, 1e-5
@@ -115,7 +116,8 @@ def _port_run(case, name, fused, shard, steps=None, state=None,
         params, state, met = step(params, state, data.batch_at(i))
         losses.append(float(met['loss']))
         if shard:
-            assert set(met) == {'loss', 'grad_norm'} | set(fsh.METRIC_FIELDS)
+            assert set(met) == ({'loss', 'grad_norm'} | set(fsh.METRIC_FIELDS)
+                                | set(schedrt.METRIC_FIELDS))
     return np.array(losses), params, state
 
 
@@ -221,9 +223,10 @@ def test_default_taps_follow_the_batch():
 
 
 @pytest.mark.parametrize('method', ['kfac', 'shampoo', 'kfac_cached',
-                                    'shampoo_cached'])
+                                    'shampoo_cached', 'foof', 'foof_cached'])
 def test_precondition_tree_explicit_methods_match_reference(method):
-    """``precondition_tree``'s explicit-inverse branches on a stacked bucket
+    """``precondition_tree``'s explicit-inverse branches (K-FAC, Shampoo and
+    FOOF, direct and cached) on a stacked bucket
     (three 6x5 leaves) and a bucket of one (4x7), against the reference:
     rtol 1e-4, atol 1e-5."""
     from repro.core import precondition as jpre

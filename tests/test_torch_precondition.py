@@ -135,9 +135,16 @@ def test_precondition_tree_fused_matches(fold):
 
 
 def test_precondition_rejects_unported_method():
+    """Every method of the reference is ported: a name it does not have
+    raises, and the fused tree takes the rank-one methods only."""
     _, _, tg, tst = _tree()
+    assert set(pre.PORTED_METHODS) == {
+        'eva', 'eva_f', 'eva_s', 'foof', 'kfac', 'shampoo', 'foof_cached',
+        'kfac_cached', 'shampoo_cached'}
     with pytest.raises(ValueError, match='not ported'):
-        pre.precondition_tree(tg, tst, 'foof', GAMMA)
+        pre.precondition_tree(tg, tst, 'newton', GAMMA)
+    with pytest.raises(ValueError, match='not ported'):
+        pre.precondition_tree_fused(tg, tst, 'foof', GAMMA)
 
 
 def _both_models(dims):
