@@ -73,7 +73,7 @@ class ArchConfig:
     param_dtype: str = 'float32'
     compute_dtype: str = 'float32'
     cache_dtype: str = 'float32'
-    attn_impl: str = 'naive'         # naive | chunked (flash: not ported)
+    attn_impl: str = 'naive'         # naive | chunked | flash
     q_chunk: int = 512
     k_chunk: int = 1024
     remat: str = 'none'              # none | full | dots

@@ -1,9 +1,42 @@
-"""Demo configs — PyTorch port of ``demo_lm`` in
-``repro/configs/registry.py``.  The ten assigned architectures
-(``get_config`` / ``get_reduced``) are not ported yet."""
+"""Arch-config registry — PyTorch port of ``repro/configs/registry.py``:
+``get_config('<id>')`` / ``get_reduced('<id>')`` for the ten assigned
+architectures (one module each beside this one, holding ``CONFIG`` and
+``REDUCED``), and the demo configs."""
 from __future__ import annotations
 
+import importlib
+
 from repro_torch.configs.base import ArchConfig
+
+_MODULES = {
+    'whisper-tiny': 'repro_torch.configs.whisper_tiny',
+    'qwen3-moe-30b-a3b': 'repro_torch.configs.qwen3_moe_30b_a3b',
+    'kimi-k2-1t-a32b': 'repro_torch.configs.kimi_k2_1t_a32b',
+    'mamba2-780m': 'repro_torch.configs.mamba2_780m',
+    'qwen2-0.5b': 'repro_torch.configs.qwen2_0_5b',
+    'codeqwen1.5-7b': 'repro_torch.configs.codeqwen1_5_7b',
+    'glm4-9b': 'repro_torch.configs.glm4_9b',
+    'command-r-35b': 'repro_torch.configs.command_r_35b',
+    'llava-next-34b': 'repro_torch.configs.llava_next_34b',
+    'jamba-v0.1-52b': 'repro_torch.configs.jamba_v0_1_52b',
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def _module(arch_id: str):
+    if arch_id not in _MODULES:
+        raise KeyError(f'unknown arch {arch_id!r}; have {sorted(_MODULES)}')
+    return importlib.import_module(_MODULES[arch_id])
+
+
+def get_config(arch_id: str) -> ArchConfig:
+    return _module(arch_id).CONFIG
+
+
+def get_reduced(arch_id: str) -> ArchConfig:
+    return _module(arch_id).REDUCED
+
 
 
 def demo_lm(scale: str = 'small') -> ArchConfig:

@@ -113,11 +113,13 @@ def ema_finish(x, trace, momentum: float, step):
 
 
 def finish_normalized_ema(p, pg, trace, momentum: float, step,
-                          eps: float = 1e-12):
+                          eps: float = 1e-12, inplace: bool = False):
     """The ``kl_normalize`` + ``ema_trace`` tail given a precomputed
-    ⟨p, g⟩."""
+    ⟨p, g⟩.  ``inplace`` scales the caller's f32 ``p`` in place (the same
+    values, one tree less in memory) when nothing else reads it."""
     s = torch.rsqrt(torch.clamp(pg, min=eps))
-    return ema_finish(tree_map(lambda u: u * s, p), trace, momentum, step)
+    scale = (lambda u: u.mul_(s)) if inplace else (lambda u: u * s)
+    return ema_finish(tree_map(scale, p), trace, momentum, step)
 
 
 def finish_graft_ema(p, pp, gg, trace, momentum: float, step,

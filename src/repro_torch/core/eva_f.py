@@ -91,8 +91,9 @@ def eva_f_fused_update(gamma: float = 0.03, kv_decay: float = 0.95,
             pg = sum(partials[k][0] for k in sorted(partials))
         else:
             pg = tree_vdot(p, extras.raw_grads)
+        # p is this call's own f32 kernel output: scaled in place
         out, stored = finish_normalized_ema(p, pg, state.trace, momentum,
-                                            extras.step)
+                                            extras.step, inplace=True)
         return out, EvaFState(**parts, trace=stored)
 
     return GradientTransformation(init, update)

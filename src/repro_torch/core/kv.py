@@ -6,7 +6,8 @@ b̄) and Eva-f (ā only, no taps), and K-FAC's factors.
 
 * **forward stats**: every preconditioned linear records the mean of its
   input, ā = (1/n) Σ a_t, and for K-FAC the factor A = (1/n) Σ a_t a_tᵀ, as
-  auxiliary outputs of the model's apply.
+  auxiliary outputs of the model's apply; an MoE expert weight records them
+  per expert over its valid slots (``fwd_stats_masked``).
 * **taps**: the layer computes ``z = x @ W + b + t`` with ``t`` a zero tensor
   that requires grad.  For a vector tap ``(d_out,)``, ``∂loss/∂t =
   Σ_t ∂loss/∂z_t``, the batch-summed pre-activation gradient: with the
@@ -88,6 +89,26 @@ def fwd_stats(x: torch.Tensor, capture: Optional[CaptureConfig]) -> LayerStats:
     if capture.a == 'outer':
         return LayerStats(a_mean=a_mean, a_outer=xt.T @ xt / n, count=count)
     return LayerStats(a_mean=a_mean, count=count)
+
+
+def fwd_stats_masked(x: torch.Tensor, mask: torch.Tensor,
+                     capture: Optional[CaptureConfig]) -> LayerStats:
+    """Per-expert input statistics of an MoE expert layer, in f32.
+
+    x: (E, C, d_in) dispatched tokens; mask: (E, C) slot validity in {0, 1}.
+    ā_e is the mean over expert e's valid slots, ``count`` (E,) their number
+    (a mean over max(count, 1), so an idle expert has ā = 0)."""
+    if capture is None or capture.a is None:
+        return LayerStats()
+    x32, m32 = x.detach().to(F32), mask.detach().to(F32)
+    cnt = m32.sum(-1)                                     # (E,)
+    denom = torch.clamp(cnt, min=1.0)[:, None]
+    a_mean = torch.bmm(m32[:, None, :], x32)[:, 0] / denom
+    if capture.a == 'outer':
+        xm = x32 * m32[..., None]
+        a_outer = xm.transpose(1, 2) @ xm / denom[..., None]
+        return LayerStats(a_mean=a_mean, a_outer=a_outer, count=cnt)
+    return LayerStats(a_mean=a_mean, count=cnt)
 
 
 # ---------------------------------------------------------------------------

@@ -221,7 +221,7 @@ def precondition_tree_fused(updates: dict, aux: dict, method: str,
     trace: flat ``{path: f32 momentum buffer}`` (missing paths get zeros),
     read only when ``fold_momentum``: without the fold no buffer is made.
     Returns ``(out, partials)``: out flat ``{path: f32}`` = μ·trace + P (or
-    P); partials flat ``{path: (3,) f32}``
+    P), fresh tensors the caller may write; partials flat ``{path: (3,) f32}``
     = [⟨out,g⟩, ⟨out,out⟩, ⟨g,g⟩], g the incoming updates.  Paths outside
     the plan get the same epilogue in plain PyTorch.
     """
@@ -273,7 +273,9 @@ def precondition_tree_fused(updates: dict, aux: dict, method: str,
         if p in pre_paths:
             continue
         g32 = g.to(F32)
-        o = mu * m_for(p) + g32 if fold_momentum else g32
+        # out is the caller's own (never the incoming tensor itself)
+        o = mu * m_for(p) + g32 if fold_momentum else \
+            g.to(F32, copy=True)
         out[p] = o
         partials[p] = torch.stack([(o * g32).sum(), (o * o).sum(),
                                    (g32 * g32).sum()])

@@ -1,7 +1,7 @@
 """GQA attention — PyTorch port of ``repro/models/attention.py``: the naive
-and chunked (online-softmax) paths and the KV-cache decode.  KV heads are
-never repeated: queries are grouped ``(B, S, KV, G, Dh)`` and contracted
-against the un-repeated K/V.
+and chunked (online-softmax) paths, flash (``models/flash.py``) and the
+KV-cache decode.  KV heads are never repeated: queries are grouped ``(B, S,
+KV, G, Dh)`` and contracted against the un-repeated K/V.
 
 The reference's head sharding (``_shard_heads``) is the identity on one
 device and is not ported.  A cache passed in is never written: each write
@@ -15,6 +15,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import apply_rope, linear, linear_spec
 
 F32 = torch.float32
@@ -118,9 +119,7 @@ def attend_decode(q, cache_k, cache_v, pos) -> torch.Tensor:
 def attend(q, k, v, *, causal: bool, impl: str = 'naive',
            q_chunk: int = 512, k_chunk: int = 1024) -> torch.Tensor:
     if impl == 'flash':
-        raise NotImplementedError(
-            "attn_impl='flash' (models/flash.py) is not ported yet: it "
-            'waits in ROADMAP.md §1 item 11 with the archs that use it')
+        return flash_attention(q, k, v, causal, q_chunk, k_chunk)
     if impl == 'chunked':
         return attend_chunked(q, k, v, causal=causal, q_chunk=q_chunk,
                               k_chunk=k_chunk)

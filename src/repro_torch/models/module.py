@@ -70,10 +70,12 @@ def add_prefix(tree: Optional[dict], prefix: str) -> dict:
 
 
 def _init_one(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
+    """One leaf, drawn on the generator's device."""
+    dev = gen.device
     if spec.init == 'zeros':
-        return torch.zeros(spec.shape, dtype=spec.dtype)
+        return torch.zeros(spec.shape, dtype=spec.dtype, device=dev)
     if spec.init == 'ones':
-        return torch.ones(spec.shape, dtype=spec.dtype)
+        return torch.ones(spec.shape, dtype=spec.dtype, device=dev)
     if spec.init == 'normal':
         std = spec.scale if spec.scale is not None else 0.02
     elif spec.init == 'scaled':  # fan-in scaled (1/sqrt(d_in) over dim -2)
@@ -81,26 +83,39 @@ def _init_one(spec: ParamSpec, gen: torch.Generator) -> torch.Tensor:
         std = spec.scale if spec.scale is not None else 1.0 / math.sqrt(fan_in)
     else:
         raise ValueError(f'unknown init {spec.init!r}')
-    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32) * std
+    x = torch.randn(spec.shape, generator=gen, dtype=torch.float32,
+                    device=dev) * std
     return x.to(spec.dtype)
 
 
 def init_params(specs: Any, generator: torch.Generator,
                 device='cuda') -> dict[str, torch.Tensor]:
     """Materialize a spec tree as flat ``{path: tensor}``: one draw per path
-    in sorted path order from a CPU ``generator``, then moved to
-    ``device`` (so a seed gives the same weights on every device)."""
+    in sorted path order from ``generator``, then moved to ``device``.  A
+    CPU generator gives the same weights on every device; a CUDA one draws
+    on the card (for weights too large to draw on the host)."""
     dev = resolve_device(device)
     flat = flatten_specs(specs)
     return {p: _init_one(flat[p], generator).to(dev) for p in sorted(flat)}
 
 
+def tensor_from_numpy(x) -> torch.Tensor:
+    """A CPU tensor holding a copy of array ``x``; a bfloat16 array (numpy's
+    ``ml_dtypes`` extension type, as JAX hands it out) keeps its bits, read
+    as uint16 and viewed as ``torch.bfloat16``."""
+    arr = np.array(x, copy=True)
+    if arr.dtype.name == 'bfloat16':
+        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
 def params_from_numpy(tree: dict, device) -> dict[str, torch.Tensor]:
     """The port's flat parameters from ``{path: array}`` or from a nested
     tree of arrays (the reference's ``init_params`` output as it comes,
-    flattened here to '/'-joined paths such as ``'blocks/attn/q/w'``)."""
+    flattened here to '/'-joined paths such as ``'blocks/attn/q/w'``);
+    bfloat16 leaves included."""
     dev = resolve_device(device)
-    return {p: torch.from_numpy(np.array(v, copy=True)).to(dev)
+    return {p: tensor_from_numpy(v).to(dev)
             for p, v in sorted(flatten_specs(tree).items())}
 
 

@@ -1,10 +1,10 @@
-"""Decoder-only transformer LM of the dense and VLM families — PyTorch port
-of ``repro/models/transformer.py``.
+"""Decoder-only transformer LM of the dense, MoE and VLM families — PyTorch
+port of ``repro/models/transformer.py``.
 
 Layer-stacked parameters (``'blocks/attn/q/w'`` is ``(n_layers, d_in,
 d_out)``), capture-aware linears everywhere, three entry points:
 
-  * ``loss_fn``     — next-token CE, returns the KV-capture stats
+  * ``loss_fn``     — next-token CE (+ MoE aux), returns the KV-capture stats
   * ``prefill_fn``  — populate a KV cache, return last-position logits
   * ``decode_fn``   — one token in, logits + updated cache out
 
@@ -20,7 +20,8 @@ attention einsums are recomputed.  remat changes memory, never numbers.
 
 VLM archs (``input_is_embeds``) take precomputed frontend embeddings for
 train/prefill and fall back to the token table for decode.  MoE blocks
-(``n_experts > 0``) are not ported yet.
+(``n_experts > 0``) route through ``models/moe.py`` and add their
+load-balancing aux, summed over the layers, to the loss.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from repro_torch.models.attention import (_full_positions, attention_block,
                                           attention_spec)
 from repro_torch.models.layers import (embed, embed_spec, linear, linear_spec,
                                        make_norm, mlp, mlp_spec)
+from repro_torch.models.moe import moe_apply, moe_spec
 
 F32 = torch.float32
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -55,6 +57,23 @@ _REMAT_CONTEXT = {
     'dots': functools.partial(ckpt.create_selective_checkpoint_contexts,
                               _dots_policy),
 }
+
+
+def remat_call(remat: str, fn, x: torch.Tensor, col: dict):
+    """``fn(x, sink)`` under a checkpoint of kind ``remat`` ('full' or
+    'dots').  Autograd's recompute runs ``fn`` again with the same capture,
+    so that the matmuls it saved line up with the forward's; the first call
+    records its stats into ``col``, the recompute's go to a dict that is
+    dropped."""
+    calls = []
+
+    def run(x):
+        sink = col if not calls else {}
+        calls.append(None)
+        return fn(x, sink)
+
+    return ckpt.checkpoint(run, x, use_reentrant=False,
+                           context_fn=_REMAT_CONTEXT[remat])
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -84,13 +103,9 @@ def _stack_stats(cols: list[dict]) -> dict:
 
 
 class TransformerLM:
-    """Families: dense, vlm."""
+    """Families: dense, moe, vlm."""
 
     def __init__(self, cfg: ArchConfig):
-        if cfg.n_experts:
-            raise NotImplementedError(
-                'MoE blocks (n_experts > 0) are not ported yet: they wait '
-                'in ROADMAP.md §1 item 11')
         if cfg.remat not in ('none', 'full', 'dots'):
             raise ValueError(f'remat {cfg.remat!r}; have none, full, dots')
         self.cfg = cfg
@@ -100,13 +115,21 @@ class TransformerLM:
     def block_spec(self) -> dict:
         cfg = self.cfg
         norm_spec, _ = make_norm(cfg.norm)
-        return {
+        spec = {
             'norm1': norm_spec(cfg.d_model, cfg.pdtype),
             'attn': attention_spec(cfg.d_model, cfg.n_heads, cfg.n_kv_heads,
                                    cfg.head_dim, cfg.pdtype, cfg.qkv_bias),
             'norm2': norm_spec(cfg.d_model, cfg.pdtype),
-            'mlp': mlp_spec(cfg.d_model, cfg.d_ff, cfg.pdtype),
         }
+        if cfg.n_experts:
+            spec['moe'] = moe_spec(cfg.d_model, cfg.d_ff, cfg.n_experts,
+                                   cfg.pdtype)
+            if cfg.n_shared_experts:
+                spec['shared_mlp'] = mlp_spec(
+                    cfg.d_model, cfg.d_ff * cfg.n_shared_experts, cfg.pdtype)
+        else:
+            spec['mlp'] = mlp_spec(cfg.d_model, cfg.d_ff, cfg.pdtype)
+        return spec
 
     def param_specs(self) -> dict:
         cfg = self.cfg
@@ -122,9 +145,17 @@ class TransformerLM:
         return specs
 
     def precon_paths(self) -> set[str]:
+        cfg = self.cfg
         paths = {f'blocks/attn/{s}/w' for s in ('q', 'k', 'v', 'o')}
-        paths |= {f'blocks/mlp/{s}/w' for s in ('gate', 'up', 'down')}
-        if not self.cfg.tie_embeddings:
+        if cfg.n_experts:
+            paths |= {f'blocks/moe/{s}/w'
+                      for s in ('router', 'gate', 'up', 'down')}
+            if cfg.n_shared_experts:
+                paths |= {f'blocks/shared_mlp/{s}/w'
+                          for s in ('gate', 'up', 'down')}
+        else:
+            paths |= {f'blocks/mlp/{s}/w' for s in ('gate', 'up', 'down')}
+        if not cfg.tie_embeddings:
             paths.add('lm_head/w')
         return paths
 
@@ -132,7 +163,8 @@ class TransformerLM:
 
     def _block(self, p, x, *, positions, col, taps, capture, cache=None,
                cache_pos=None):
-        """One block on its flat per-layer dict ``p`` ('attn/q/w', ...)."""
+        """One block on its flat per-layer dict ``p`` ('attn/q/w', ...):
+        (x, new cache, MoE aux)."""
         cfg = self.cfg
         _, norm = make_norm(cfg.norm)
         kw = dict(col=col, taps=taps, capture=capture,
@@ -146,24 +178,25 @@ class TransformerLM:
             cache_pos=cache_pos, path='attn', **kw)
         x = x + att
         h2 = norm(M.subtree(p, 'norm2'), x)
-        return x + mlp(p, h2, path='mlp', **kw), new_cache
+        if cfg.n_experts:
+            ff, aux = moe_apply(p, h2, top_k=cfg.top_k,
+                                capacity_factor=cfg.capacity_factor,
+                                norm_topk=cfg.norm_topk, path='moe',
+                                aux_coef=cfg.moe_aux_coef, **kw)
+            if cfg.n_shared_experts:
+                ff = ff + mlp(p, h2, path='shared_mlp', **kw)
+        else:
+            ff = mlp(p, h2, path='mlp', **kw)
+            aux = torch.zeros((), dtype=F32, device=x.device)
+        return x + ff, new_cache, aux
 
     def _remat_block(self, p, x, *, positions, col, taps, capture):
-        """``_block`` under a checkpoint.  Autograd's recompute runs the
-        block again with the same capture, so that the matmuls it saved
-        line up with the forward's; the first call records the stats into
-        ``col``, the recompute's go to a dict that is dropped."""
-        calls = []
-
-        def run(x):
-            sink = col if not calls else {}
-            calls.append(None)
-            y, _ = self._block(p, x, positions=positions, col=sink,
-                               taps=taps, capture=capture)
-            return y
-
-        return ckpt.checkpoint(run, x, use_reentrant=False,
-                               context_fn=_REMAT_CONTEXT[self.cfg.remat])
+        """``_block`` under a checkpoint: (x, MoE aux)."""
+        def run(x, sink):
+            y, _, aux = self._block(p, x, positions=positions, col=sink,
+                                    taps=taps, capture=capture)
+            return y, aux
+        return remat_call(self.cfg.remat, run, x, col)
 
     # -- forward (train / prefill share the layer loop) -------------------
 
@@ -175,24 +208,26 @@ class TransformerLM:
         layer_caches = _unstack((cache or {}).get('blocks'), n)
         remat = (self.cfg.remat != 'none' and cache is None
                  and torch.is_grad_enabled())
-        cols, new_caches = [], []
+        cols, new_caches, auxs = [], [], []
         for p, bt, bc in zip(layers, layer_taps, layer_caches):
             bcol: dict = {}
             if remat:
-                x = self._remat_block(p, x, positions=positions, col=bcol,
-                                      taps=bt, capture=capture)
+                x, aux = self._remat_block(p, x, positions=positions,
+                                           col=bcol, taps=bt, capture=capture)
             else:
-                x, bc = self._block(p, x, positions=positions, col=bcol,
-                                    taps=bt, capture=capture, cache=bc,
-                                    cache_pos=cache_pos)
+                x, bc, aux = self._block(p, x, positions=positions, col=bcol,
+                                         taps=bt, capture=capture, cache=bc,
+                                         cache_pos=cache_pos)
             cols.append(bcol)
             new_caches.append(bc)
+            auxs.append(aux)
         new_cache = None
         if cache is not None:
             new_cache = dict(cache)
             new_cache['blocks'] = {k: torch.stack([c[k] for c in new_caches])
                                    for k in new_caches[0]}
-        return x, M.add_prefix(_stack_stats(cols), 'blocks'), new_cache
+        return (x, M.add_prefix(_stack_stats(cols), 'blocks'),
+                torch.stack(auxs).sum(), new_cache)
 
     def _logits(self, params, x, col, taps, capture):
         cfg = self.cfg
@@ -217,10 +252,10 @@ class TransformerLM:
         x = self._embed_in(params, batch)
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
-        x, col, _ = self._forward(params, x, positions, taps=taps,
-                                  capture=capture)
+        x, col, aux, _ = self._forward(params, x, positions, taps=taps,
+                                       capture=capture)
         logits = self._logits(params, x, col, taps, capture)
-        loss = cross_entropy(logits, batch['labels'])
+        loss = cross_entropy(logits, batch['labels']) + aux
         return loss, {'stats': col, 'n_tokens': b * s}
 
     def init_cache(self, batch_size: int, max_seq: int, device='cuda'):
@@ -238,7 +273,7 @@ class TransformerLM:
         b, s = x.shape[:2]
         positions = torch.arange(s, device=x.device).expand(b, s)
         cache = self.init_cache(b, s, device=x.device)
-        x, col, cache = self._forward(params, x, positions, cache=cache)
+        x, col, _, cache = self._forward(params, x, positions, cache=cache)
         logits = self._logits(params, x[:, -1:, :], col, None, None)
         return logits[:, 0], cache
 
@@ -248,7 +283,7 @@ class TransformerLM:
         tensor)."""
         x = embed(M.subtree(params, 'embed'), tokens[:, None], self.cfg.cdtype)
         positions = _full_positions(tokens.shape[0], pos, x.device)
-        x, col, new_cache = self._forward(params, x, positions, cache=cache,
-                                          cache_pos=pos)
+        x, col, _, new_cache = self._forward(params, x, positions,
+                                             cache=cache, cache_pos=pos)
         logits = self._logits(params, x, col, None, None)
         return logits[:, 0], new_cache

@@ -91,7 +91,10 @@ def compute_grads_and_stats(model, params: dict, batch: dict,
         taps = {k: t.detach().requires_grad_(True) for k, t in taps.items()}
     loss, aux = model.loss_fn(leaves, taps, batch, capture)
     inputs = list(leaves.values()) + (list(taps.values()) if taps else [])
-    got = torch.autograd.grad(loss, inputs)
+    # a leaf the loss does not read (a VLM's token table) gets zeros, as
+    # JAX's gradient gives
+    got = torch.autograd.grad(loss, inputs, allow_unused=True,
+                              materialize_grads=True)
     grads = dict(zip(leaves, got[:len(leaves)]))
     tap_grads = dict(zip(taps, got[len(leaves):])) if taps else None
     stats = None

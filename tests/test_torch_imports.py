@@ -35,7 +35,12 @@ def test_port_files_found():
             'shampoo.py', 'factor_sharded.py', 'foof.py', 'mfac.py',
             'firstorder.py', 'policy.py', 'checkpoint.py', 'trainer.py',
             'memmap_loader.py', 'pipeline.py', 'events.py',
-            'spans.py'} <= names
+            'spans.py', 'moe.py', 'flash.py', 'ssm.py', 'mamba_lm.py',
+            'hybrid.py', 'encdec.py', 'serve.py', 'qwen3_moe_30b_a3b.py',
+            'whisper_tiny.py', 'kimi_k2_1t_a32b.py', 'mamba2_780m.py',
+            'qwen2_0_5b.py', 'codeqwen1_5_7b.py', 'glm4_9b.py',
+            'command_r_35b.py', 'llava_next_34b.py',
+            'jamba_v0_1_52b.py'} <= names
 
 
 def _no_card():
@@ -62,6 +67,15 @@ def test_entry_points_default_to_the_card():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_opt_state(model, opt, cap, params,
                        {'x': torch.zeros(2, 16)})
+    from repro_torch.configs.registry import get_reduced
+    from repro_torch.launch.serve import serve
+    from repro_torch.models.registry import build_model
+    for arch in ('qwen3-moe-30b-a3b', 'mamba2-780m', 'jamba-v0.1-52b',
+                 'whisper-tiny'):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build_model(get_reduced(arch)).init_cache(2, 8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        serve('qwen2-0.5b', reduced=True)
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

@@ -184,8 +184,11 @@ def test_attends(causal):
         _close_rel(A.attend(_t(q), _t(k), _t(v), causal=causal,
                             impl='chunked', q_chunk=qc, k_chunk=kc), ref,
                    'attend chunked')
-    with pytest.raises(NotImplementedError, match='item 11'):
-        A.attend(_t(q), _t(k), _t(v), causal=causal, impl='flash')
+    for qc, kc in ((4, 8), (16, 4)):
+        _close_rel(A.attend(_t(q), _t(k), _t(v), causal=causal,
+                            impl='flash', q_chunk=qc, k_chunk=kc),
+                   JA.attend(jq, jk, jv, causal=causal, impl='flash',
+                             q_chunk=qc, k_chunk=kc), f'attend flash {qc}x{kc}')
 
 
 def test_attend_decode():
@@ -434,11 +437,16 @@ def test_registry_and_unported_paths():
     assert demo_lm('100m').remat == 'dots'
     assert M.count_params(build_model(demo_lm('100m')).param_specs()) == \
         125_848_320
-    for family in ('moe', 'ssm', 'hybrid', 'encdec'):
-        with pytest.raises(NotImplementedError, match='item 11'):
-            build_model(demo_lm('small').replace(family=family))
-    with pytest.raises(NotImplementedError, match='item 11'):
-        TransformerLM(demo_lm('small').replace(n_experts=4, top_k=2))
+    # every family of the reference builds, the class of the reference's
+    for family, cls in (('moe', 'TransformerLM'), ('ssm', 'MambaLM'),
+                        ('hybrid', 'JambaLM'), ('encdec', 'EncDecLM')):
+        cfg = demo_lm('small').replace(family=family, attn_period=2)
+        assert type(build_model(cfg)).__name__ == cls == \
+            type(jbuild(JArchConfig(**vars(cfg)))).__name__
+    moe = TransformerLM(demo_lm('small').replace(n_experts=4, top_k=2))
+    assert 'blocks/moe/gate/w' in moe.precon_paths()
+    with pytest.raises(ValueError, match='unknown family'):
+        build_model(demo_lm('small').replace(family='rnn'))
     with pytest.raises(KeyError):
         demo_lm('huge')
 

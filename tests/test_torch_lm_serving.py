@@ -22,6 +22,7 @@ from repro.configs.registry import demo_lm as jdemo_lm  # noqa: E402
 from repro.models import build_model as jbuild  # noqa: E402
 from repro.models import module as JM  # noqa: E402
 from repro_torch.configs.registry import demo_lm  # noqa: E402
+from repro_torch.launch.serve import grow_cache  # noqa: E402
 from repro_torch.models import module as M  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
 from test_torch_lm_modules import _close_rel  # noqa: E402
@@ -39,14 +40,6 @@ def _setup(**over):
     toks = np.random.default_rng(1).integers(0, jcfg.vocab, (B, N)
                                              ).astype(np.int32)
     return jm, tm, jp, M.params_from_numpy(jp, 'cpu'), toks
-
-
-def grow_cache(model, cache, batch, total):
-    """A cache of ``total`` positions holding ``cache`` at its start."""
-    grown = model.init_cache(batch, total, device='cpu')
-    for k, part in cache['blocks'].items():
-        grown['blocks'][k][:, :, :part.shape[2]] = part
-    return grown
 
 
 @pytest.mark.parametrize('attn', ['naive', 'chunked'])
@@ -77,7 +70,7 @@ def test_decode_matches_reference_and_prefill():
     t = torch.from_numpy(toks)
     full, _ = tm.prefill_fn(tp, {'tokens': t})
     _, tc = tm.prefill_fn(tp, {'tokens': t[:, :-1]})
-    grown = grow_cache(tm, tc, B, N)
+    grown = grow_cache(tm, tc, B, N, device='cpu')
     kept = {k: v.clone() for k, v in grown['blocks'].items()}
     for pos in (N - 1, torch.tensor(N - 1, dtype=torch.int32)):
         tl, tc2 = tm.decode_fn(tp, grown, t[:, -1], pos)
@@ -99,7 +92,7 @@ def test_greedy_decode_finite_and_repeatable():
     def run():
         logits, cache = tm.prefill_fn(
             tp, {'tokens': torch.from_numpy(toks[:, :plen])})
-        cache = grow_cache(tm, cache, B, plen + gen)
+        cache = grow_cache(tm, cache, B, plen + gen, device='cpu')
         tok, out = logits.argmax(-1).to(torch.int32), []
         for i in range(gen):
             logits, cache = tm.decode_fn(tp, cache, tok, plen + i)
