@@ -127,6 +127,35 @@ Phases; any failure stops the run with a non-zero exit:
               widths (13,267,656,416 parameters, 26.5 GB of bf16 weights):
               serving 1 x 2048 and 16 decode steps; Eva composed and fused
               at its reduced config.
+10. workers — the multi-worker layers over torch.distributed.  10a, a
+              one-rank NCCL group in this process: make_dp_step equals
+              make_train_step bit for bit on the full-width autoencoder
+              (Eva fused, Eva-f fused, K-FAC and Shampoo shard, 10 steps
+              each; both steps' host-clock ms: the DP path's own
+              overhead), and fit_elastic(world=1) equals fit on demo-100m
+              (8 steps), deterministic algorithms on.  10b, four ranks
+              spawned over gloo sharing the one card (NCCL refuses two
+              ranks on one GPU), 250 samples a rank, 10 steps each of Eva
+              composed and fused, Eva-f fused, K-FAC and Shampoo shard and
+              FOOF: rank 0 takes each step at W = 1 from the same state as
+              well, on the whole batch and as the one-process twin of the
+              four shard means; the W = 4 update within 1e-4 of the twin's
+              norm, and of the whole-batch step's (or twice the twin's own
+              distance to it, where the method is that sensitive to the
+              split); each rank multiplies only its own 250-row band of a
+              sharded factor (matvec_cols on 1 x 250 x 1000, held to its
+              plain version on the path's inputs); exchange='gather'
+              equals 'psum' bit for bit (K-FAC, FOOF, Shampoo); 'onestep'
+              (Eva fused, K-FAC shard) starts from the cold buffers; the
+              MLP of phase 5 with its stacked 3 x 1000 x 1000 bucket banded
+              (3 x 250 x 1000); the int8 DP step reports comm_saturation 0;
+              each call site's bytes.  10c: Eva and K-FAC trained by
+              fit_elastic at W = 4, SIGTERM at step 8, restored at W = 2,
+              SIGTERM at 16, restored at W = 4 to step 24: every step once,
+              each loss within 1e-4 of the uninterrupted run's, the
+              reshard records (4, 2) and (2, 4); a live world_fn 4 -> 2 ->
+              4 likewise.  The launches of 10a and of 10b summed over the
+              ranks go into the kernel rows.
 
 The line before the card line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -296,8 +325,11 @@ def require(cond: bool, msg: str) -> None:
         fail(msg)
 
 
+T_START = time.perf_counter()
+
+
 def phase(name: str) -> None:
-    print(f'== {name}', flush=True)
+    print(f'== {name} [{time.perf_counter() - T_START:.1f} s]', flush=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1301,20 +1333,27 @@ def _graph_ms(torch, fn, iters, warmup=5, repeats=3):
     return _time_ms(torch, graph.replay, iters, repeats, warmup=warmup)
 
 
-def _device_launches(torch, fn, calls):
+def _device_launches(torch, fn, calls, traces=3):
     """Device kernels per wrapper call in one run of ``fn`` (``calls``
-    wrapper calls), from the profiler: (all of them, the port's own)."""
+    wrapper calls), from the profiler: (all of them, the port's own).
+    A trace can lose a kernel's event (CUPTI dropped one of eight bilinear
+    launches in one run on an H100), so a trace may count a launch short
+    but never one over: each count is the largest of ``traces`` traced
+    runs, which still sees every launch too many."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA]
-    return (sum(e.count for e in events) / calls,
-            sum(e.count for e in events if 'repro::' in e.key) / calls)
+    every, port = 0, 0
+    for _ in range(traces):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA]
+        every = max(every, sum(e.count for e in events))
+        port = max(port, sum(e.count for e in events if 'repro::' in e.key))
+    return every / calls, port / calls
 
 
 def _host_us(torch, fn, reps, calls):
@@ -2872,6 +2911,753 @@ def families_phase(torch, rows):
           f'{ {k: round(v, 1) for k, v in took.items()} }', flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 10. the multi-worker layers (torch.distributed)
+
+# 10b's autoencoder paths: tag -> (optimizer, lr of MAIN_PATHS /
+# SOLVER_PATHS / REST_PATHS, fused, the sharded-factor config or None, the
+# kernels launched: {kernel: launches per step and rank})
+P10_WORLD = 4
+P10_STEPS = 10
+P10_CMP_STEPS = 3       # steps of the gather-against-psum runs
+P10_PATHS = {
+    'eva': ('eva', 0.15, False, None, {'bilinear': 8, 'rank1_update': 8}),
+    'eva fused': ('eva', 0.15, True, None, {'eva_fused': 8}),
+    'eva_f fused': ('eva_f', 0.15, True, None, {'eva_f_fused': 8}),
+    'kfac shard': ('kfac', 0.15, False, SOLVER_PATHS['kfac'][1],
+                   {'matvec_cols': 128}),
+    'shampoo shard': ('shampoo', 0.3, False, SOLVER_PATHS['shampoo'][1],
+                      {'matvec_cols': 128}),
+    'foof': ('foof', 0.1, False, None, {}),
+}
+# 10a: the paths held bit for bit to make_train_step under a one-rank NCCL
+# group
+P10_W1_PATHS = ('eva fused', 'eva_f fused', 'kfac shard', 'shampoo shard')
+# the gather ≡ psum runs
+P10_PSUM_PATHS = ('kfac shard', 'foof', 'shampoo shard')
+P10_MLP_STEPS = 3
+# 10b holds each W = 4 update within PARAM_RTOL of the W = 1 step on the
+# whole batch from the same state (relative to that step's norm), but for
+# these paths, whose f32 step one rounding of the data already moves as far:
+# on an H100 (scripts/dp_split.py) splitting the batch moved FOOF's step by
+# 1.70e-4 and the MLP's K-FAC step by 1.44e-3, one f32 rounding of the
+# batch's inputs by 9.0e-5 and 1.44e-3, and the whole-batch f32 step itself
+# lies up to 3.8e-5 and 1.44e-3 from the f64 step; in f64 the W = 4 step is
+# the whole-batch step within 7e-14 and 2.4e-11.  Fixed caps, about three
+# times those readings.
+P10_W1_RTOL = {'foof': 5e-4, 'mlp kfac shard': 5e-3}
+# the stacked 3 x 1000 x 1000 bucket of phase 5's MLP, K-FAC sharded
+P10_MLP = ('kfac', 0.1, False, SOLVER_PATHS['kfac'][1], {})
+P10_FIT_STEPS = 8
+P10_CHAOS_STEPS, P10_KILLS = 24, (8, 16)
+P10_LIVE_STEPS = 16
+P10_TIMEOUT = 900.0
+
+
+def _p10_opt(torch, spec):
+    """(optimizer, capture, factor config) of a P10_PATHS entry."""
+    from repro_torch.core.factor_sharded import FactorShardConfig
+    from repro_torch.core.registry import make_optimizer
+    name, lr, fused, shard, _ = spec
+    kw = {} if name == 'foof' else {'fused': fused}
+    opt, cap = make_optimizer(name, lr=lr, **kw)
+    return opt, cap, (FactorShardConfig(**shard) if shard else None)
+
+
+def _state_snapshot(torch, state):
+    from repro_torch.core.transform import tree_leaves_with_path
+    return {k: v.clone() for k, v in tree_leaves_with_path(state).items()
+            if torch.is_tensor(v)}
+
+
+def _snapshots_equal(torch, a, b):
+    return list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def _ms(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+class _TokenData:
+    """Seekable random-token batches on the card for demo-100m: batch
+    ``step`` drawn from a generator seeded with ``seed + step``."""
+
+    def __init__(self, torch, vocab, batch, seq, seed):
+        self.torch, self.vocab = torch, vocab
+        self.batch, self.seq, self.seed = batch, seq, seed
+
+    def batch_at(self, step):
+        torch = self.torch
+        gen = torch.Generator(device='cuda').manual_seed(self.seed + step)
+        return {k: torch.randint(0, self.vocab, (self.batch, self.seq),
+                                 generator=gen, device='cuda',
+                                 dtype=torch.int32)
+                for k in ('tokens', 'labels')}
+
+
+def _fit_pair(torch, work):
+    """fit and fit_elastic(world=1) of demo-100m, Eva fused, P10_FIT_STEPS
+    steps each from the same weights: (fit's, fit_elastic's) (params,
+    state, losses) and launches."""
+    from repro_torch.configs.registry import demo_lm
+    from repro_torch.core.registry import make_optimizer
+    from repro_torch.kernels import launches
+    from repro_torch.models.registry import build_model
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+    model = build_model(demo_lm('100m'))
+    params0 = _on_card(torch, model, 20)
+    lr, kw, *_ = LM_PATHS['eva']
+    data = _TokenData(torch, demo_lm('100m').vocab, FIT_BATCH, FIT_SEQ, 300)
+    runs = {}
+    for how in ('fit', 'fit_elastic'):
+        opt, cap = make_optimizer('eva', lr=lr, fused=True, **kw)
+        cfg = TrainerConfig(total_steps=P10_FIT_STEPS, log_every=100,
+                            out_dir=str(work / how))
+        tr = Trainer(model, opt, cap, cfg, device='cuda')
+        launches.reset()
+        if how == 'fit':
+            p, s, h = tr.fit(params0, data, resume=False)
+        else:
+            p, s, h = tr.fit_elastic(params0, data, world=1)
+            h = [loss for _, loss in h]
+        runs[how] = (p, _state_snapshot(torch, s), h, launches.snapshot())
+        del p, s
+    return runs
+
+
+def dp_w1_phase(torch):
+    """10a: make_dp_step under a one-rank NCCL group against
+    make_train_step, bit for bit, on the full-width autoencoder; then
+    fit_elastic(world=1) against fit on demo-100m.  Returns (launches of
+    the DP runs, per-step launches, info)."""
+    phase('10a W = 1 NCCL: make_dp_step against make_train_step on the '
+          'autoencoder (Eva fused, Eva-f fused, K-FAC shard, Shampoo shard, '
+          f'{P10_STEPS} steps each) and fit_elastic against fit on '
+          f'demo-100m ({P10_FIT_STEPS} steps), bit for bit')
+    import os
+    import shutil
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.kernels import launches
+    from repro_torch.launch import workers
+    from repro_torch.train.step import (init_opt_state, make_dp_step,
+                                        make_train_step)
+    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
+    torch.use_deterministic_algorithms(True)
+    store = tempfile.mkdtemp(prefix='repro_torch_nccl_')
+    workers.init_workers('nccl', 'cuda', rank=0, world=1,
+                         init_method=f'file://{store}/store')
+    counts = {k: 0 for k in launches.COUNTS}
+    per_step, info = {}, {}
+    try:
+        require(dist.get_backend() == 'nccl', 'not an NCCL group')
+        model, params0, batches = ae_setup(torch)
+        batches = batches[:P10_STEPS]
+        for tag in P10_W1_PATHS:
+            runs, ms = {}, {}
+            for how in ('train', 'dp'):
+                opt, cap, factor = _p10_opt(torch, P10_PATHS[tag])
+                state = init_opt_state(model, opt, cap, params0, batches[0],
+                                       factor=factor, device='cuda')
+                step = (make_dp_step(model, opt, cap, None, factor=factor,
+                                     device='cuda') if how == 'dp' else
+                        make_train_step(model, opt, cap, factor=factor,
+                                        device='cuda'))
+                params, losses, times = params0, [], []
+                launches.reset()
+                for batch in batches:
+                    (params, state, met), t = _ms(
+                        torch, lambda: step(params, state, batch))
+                    losses.append(float(met['loss']))
+                    times.append(t)
+                got = launches.snapshot()
+                runs[how] = (params, _state_snapshot(torch, state), losses,
+                             got)
+                ms[how] = statistics.median(times[1:])
+            (pa, sa, la, _), (pb, sb, lb, got) = runs['train'], runs['dp']
+            want = {k: v * P10_STEPS
+                    for k, v in P10_PATHS[tag][4].items()}
+            require(got == {k: want.get(k, 0) for k in got},
+                    f'10a {tag}: DP launches {got} != {want}')
+            require(la == lb, f'10a {tag}: losses {la} != {lb}')
+            require(all(torch.equal(pa[k], pb[k]) for k in pa),
+                    f'10a {tag}: parameters differ')
+            require(_snapshots_equal(torch, sa, sb),
+                    f'10a {tag}: optimizer state differs')
+            _finite_and_falling(la, f'10a {tag}')
+            for k in counts:
+                counts[k] += got[k]
+            per_step[f'p10 W=1 nccl {tag}'] = {
+                k: v // P10_STEPS for k, v in got.items() if v}
+            info[f'w1 nccl {tag}'] = {
+                'train_step_ms': ms['train'], 'dp_step_ms': ms['dp'],
+                'dp_overhead_ms': ms['dp'] - ms['train'],
+                'loss_first_last': [la[0], la[-1]]}
+            print(f'  {tag}: bit for bit over {P10_STEPS} steps; launches '
+                  f'{ {k: v for k, v in got.items() if v} }; step ms median '
+                  f'make_train_step {ms["train"]:.2f}, make_dp_step '
+                  f'{ms["dp"]:.2f} (DP overhead {ms["dp"] - ms["train"]:+.2f})',
+                  flush=True)
+            del runs
+        del model, params0, batches
+        work = ROOT / 'build' / 'smoke_fit_elastic'
+        shutil.rmtree(work, ignore_errors=True)
+        fits = _fit_pair(torch, work)
+        (pa, sa, ha, ga), (pb, sb, hb, gb) = fits['fit'], fits['fit_elastic']
+        require(ha == hb, f'10a fit {ha} != fit_elastic {hb}')
+        require(all(torch.equal(pa[k], pb[k]) for k in pa),
+                '10a fit_elastic parameters differ from fit\'s')
+        require(_snapshots_equal(torch, sa, sb),
+                '10a fit_elastic state differs from fit\'s')
+        want = {k: (LM_WEIGHTS * P10_FIT_STEPS if k == 'eva_fused' else 0)
+                for k in launches.COUNTS}
+        require(gb == want, f'10a fit_elastic launches {gb} != {want}')
+        for k in counts:
+            counts[k] += gb[k]
+        per_step['p10 W=1 nccl lm fit_elastic eva fused'] = {
+            'eva_fused': LM_WEIGHTS}
+        info['lm_fit_elastic'] = {'losses': hb}
+        print(f'  demo-100m fit_elastic(world=1) = fit bit for bit over '
+              f'{P10_FIT_STEPS} steps (loss {hb[0]:.4f} -> {hb[-1]:.4f}); '
+              f'launches {gb["eva_fused"]} eva_fused', flush=True)
+        shutil.rmtree(work, ignore_errors=True)
+        del fits, pa, pb, sa, sb
+    finally:
+        workers.shutdown_workers()
+        shutil.rmtree(store, ignore_errors=True)
+        torch.use_deterministic_algorithms(False)
+    return counts, per_step, info
+
+
+def _p10_dist(torch, params, ref, new):
+    """(‖Δnew − Δref‖ / ‖Δref‖ over the whole update, the largest such
+    ratio of one leaf), Δ = the step's change of the parameters."""
+    num = den = leaf = 0.0
+    for k, p in params.items():
+        d1 = ref[k].double() - p.double()
+        n1 = torch.linalg.vector_norm(d1).item()
+        dn = torch.linalg.vector_norm(new[k].double() - p.double()
+                                      - d1).item()
+        num, den = num + dn ** 2, den + n1 ** 2
+        if n1 > 0:
+            leaf = max(leaf, dn / n1)
+    return (num / den) ** 0.5 if den > 0 else float('inf'), leaf
+
+
+def _p10_twin(torch, model, opt, cap, factor, params, state, batch,
+              world):
+    """The W-worker step's arithmetic on one process: each shard's loss,
+    gradients and statistics, their sum in rank order over W, the
+    optimizer's second mean of the identical statistics; then the update.
+    Returns its new parameters."""
+    from repro_torch.core.transform import Extras, apply_updates, tree_map
+    from repro_torch.train.step import (_plan_for_stats,
+                                        compute_grads_and_stats)
+    n = next(iter(batch.values())).shape[0] // world
+    parts = [compute_grads_and_stats(model, params, {
+        k: v[r * n:(r + 1) * n] for k, v in batch.items()}, cap)
+        for r in range(world)]
+
+    def mean(trees):
+        acc = trees[0]
+        for t in trees[1:]:
+            acc = tree_map(lambda a, b: a + b, acc, t)
+        return tree_map(lambda a: a / world, acc)
+
+    loss, grads = mean([p[0] for p in parts]), mean([p[1] for p in parts])
+    stats = None if parts[0][2] is None else \
+        mean([mean([p[2] for p in parts])] * world)
+    upd, _ = opt.update(grads, state, params=params, extras=Extras(
+        stats=stats, loss=loss, plan=_plan_for_stats(grads, stats),
+        factor=factor))
+    return apply_updates(params, upd)
+
+
+def _p10_agree(torch, params, ref, twin, new, what, cap):
+    """The W = 4 step's change held to two W = 1 steps from the same state.
+    (a) Its arithmetic twin (the same four shard means on one process):
+    within PARAM_RTOL of its norm over the whole update, which proves the
+    exchanges.  (b) The step on the whole batch: within ``cap`` (PARAM_RTOL
+    but for the paths of P10_W1_RTOL).  Returns (W = 4 against the
+    whole-batch step, its largest one-leaf ratio, W = 4 against the twin,
+    the twin against the whole-batch step)."""
+    rel_twin, _ = _p10_dist(torch, params, twin, new)
+    require(rel_twin <= PARAM_RTOL, f'{what}: the update is {rel_twin:.3e}'
+            f' of its one-process twin\'s norm away from it, beyond '
+            f'{PARAM_RTOL}')
+    split, _ = _p10_dist(torch, params, ref, twin)
+    rel, leaf = _p10_dist(torch, params, ref, new)
+    require(rel <= cap, f'{what}: the update is {rel:.3e} of the W = 1 '
+            f'step\'s norm away from it, beyond {cap:.1e} (its one-process '
+            f'twin lies {split:.3e} from that step)')
+    return rel, leaf, rel_twin, split
+
+
+def _p10_run(torch, rank, model, params0, batches, tag, *, sched=None,
+             comm=None, agree=True, snap_at=None, record=False, spec=None):
+    """One P10_PATHS tag (or ``spec``) through make_dp_step over every
+    rank; on rank 0 each step also taken at W = 1 on the whole batch from
+    the same state (its launches and kernel calls not counted) and held by
+    _p10_agree.  Returns the run's record."""
+    from repro_torch.comm import metrics
+    from repro_torch.kernels import launches
+    from repro_torch.train.step import (init_opt_state, make_dp_step,
+                                        make_train_step)
+    opt, cap, factor = _p10_opt(torch, spec or P10_PATHS[tag])
+    kw = dict(sched=sched, factor=factor, device='cuda')
+    state = init_opt_state(model, opt, cap, params0, batches[0], comm=comm,
+                           **kw)
+    step = make_dp_step(model, opt, cap, None, comm=comm, **kw)
+    ref_step = make_train_step(model, opt, cap, comm=comm, **kw)
+    params, losses, snap = params0, [], None
+    worst = leaf = twin_rel = split = 0.0
+    metrics.reset()
+    with _recording(torch) as (seen, calls):
+        launches.reset()
+        for i, batch in enumerate(batches):
+            if agree and rank == 0:
+                mine = (launches.snapshot(), dict(seen), dict(calls))
+                ref, _, _ = ref_step(params, state, batch)
+                twin = _p10_twin(torch, model, opt, cap, factor, params,
+                                 state, batch, P10_WORLD)
+                launches.COUNTS.update(mine[0])
+                seen.clear()
+                seen.update(mine[1])
+                calls.clear()
+                calls.update(mine[2])
+            new, state, met = step(params, state, batch)
+            if agree and rank == 0:
+                rel, one, to_twin, twin_off = _p10_agree(
+                    torch, params, ref, twin, new, f'10b {tag} step {i}',
+                    P10_W1_RTOL.get(tag, PARAM_RTOL))
+                worst, leaf = max(worst, rel), max(leaf, one)
+                twin_rel, split = max(twin_rel, to_twin), max(split,
+                                                              twin_off)
+                del ref, twin
+            params = new
+            losses.append(float(met['loss']))
+            if snap_at == i + 1:
+                snap = ({k: v.clone() for k, v in params.items()},
+                        _state_snapshot(torch, state))
+        got = launches.snapshot()
+    lag = {k: int(v) for k, v in met.items() if k.startswith('pipeline')}
+    kerr = {}
+    if record and rank == 0:
+        kerr, _ = _check_path_inputs(torch, seen, f'10b {tag}')
+    return {'losses': losses, 'launches': got, 'worst': worst,
+            'worst_leaf': leaf, 'twin': twin_rel, 'split': split,
+            'snap': snap,
+            'params': params,
+            'state': state, 'lag': lag,
+            'calls': {f'{k}{list(s)}': c for (k, s), c in calls.items()},
+            'kerr': kerr, 'sites': metrics.snapshot()}
+
+
+def _p10_first_step_zero_stats(torch, model, params0, batch, tag):
+    """The W = 1 step that sees zero statistics (the cold pipeline's first
+    step of the Eva family): its new parameters."""
+    from repro_torch.core.transform import Extras, apply_updates, tree_map
+    from repro_torch.train.step import (_plan_for_stats,
+                                        compute_grads_and_stats,
+                                        init_opt_state)
+    opt, cap, factor = _p10_opt(torch, P10_PATHS[tag])
+    state = init_opt_state(model, opt, cap, params0, batch, factor=factor,
+                           device='cuda')
+    loss, grads, stats = compute_grads_and_stats(model, params0, batch, cap)
+    zero = tree_map(torch.zeros_like, stats)
+    upd, _ = opt.update(grads, state, params=params0, extras=Extras(
+        stats=zero, loss=loss, plan=_plan_for_stats(grads, zero),
+        factor=factor))
+    return apply_updates(params0, upd)
+
+
+def _p10_dense_paths(torch, model, params0, tag):
+    """The weights of the dense-plan buckets (their sides below the shard
+    threshold)."""
+    from repro_torch.core import bucketing
+    from repro_torch.core import factor_sharded as fsh
+    _, _, factor = _p10_opt(torch, P10_PATHS[tag])
+    plan = bucketing.build_plan({p: params0[p]
+                                 for p in sorted(model.precon_paths())})
+    return list(fsh.split_plan(plan, factor)[0].paths)
+
+
+def _p10_elastic(torch, rank, root):
+    """10c: chaos and live resizes of Eva and K-FAC on the autoencoder."""
+    import os
+    import signal
+    from repro_torch.core.registry import make_optimizer
+    from repro_torch.data.synthetic import AEStream
+    from repro_torch.models import module as M
+    from repro_torch.models.simple import ae_loss_fn, autoencoder
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    class Chaos:
+        def __init__(self, kill_at):
+            self.inner, self.kill_at = AEStream(batch=1000, device='cuda'), \
+                kill_at
+
+        def batch_at(self, step):
+            if step == self.kill_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return self.inner.batch_at(step)
+
+    def trainer(name, out, steps):
+        model = autoencoder()
+        model.loss_fn = ae_loss_fn(model)
+        opt, cap = make_optimizer(name, lr=0.15)
+        cfg = TrainerConfig(total_steps=steps, log_every=4,
+                            ckpt_every=10 ** 6, out_dir=str(out))
+        params = M.init_params(model.param_specs(),
+                               torch.Generator().manual_seed(0),
+                               device='cuda')
+        return Trainer(model, opt, cap, cfg, device='cuda'), params
+
+    out = {}
+    for name in ('eva', 'kfac'):
+        t0 = time.perf_counter()
+        tr, p = trainer(name, f'{root}/{name}/base', P10_CHAOS_STEPS)
+        base = tr.fit_elastic(p, Chaos(None), world=P10_WORLD)[2]
+        chaos = []
+        for w, kill in ((P10_WORLD, P10_KILLS[0]), (2, P10_KILLS[1]),
+                        (P10_WORLD, None)):
+            tr, p = trainer(name, f'{root}/{name}/chaos', P10_CHAOS_STEPS)
+            chaos.append(tr.fit_elastic(p, Chaos(kill), world=w)[2])
+        tr, p = trainer(name, f'{root}/{name}/live', P10_LIVE_STEPS)
+        live = tr.fit_elastic(p, Chaos(None), world=P10_WORLD,
+                              world_fn=lambda s: 2 if 6 <= s < 11 else 4)[2]
+        out[name] = {'base': base, 'chaos': chaos, 'live': live,
+                     'seconds': time.perf_counter() - t0}
+        del tr, p
+    return out
+
+
+def _p10_rank(rank, world, root):
+    """One rank of 10b and 10c (four ranks over gloo on the one card)."""
+    import os
+    os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.comm.exchange import ExchangeConfig
+    from repro_torch.schedule import ownership
+    from repro_torch.schedule.runtime import RefreshRuntime
+    t0 = time.perf_counter()
+    res = {'world_and_rank_outside': ownership.world_and_rank()}
+    model, params0, batches = ae_setup(torch)
+    batches = batches[:P10_STEPS]
+    runs = {}
+    for tag in P10_PATHS:
+        runs[tag] = _p10_run(torch, rank, model, params0, batches, tag,
+                             snap_at=P10_CMP_STEPS,
+                             record=(tag == 'kfac shard'))
+    # gather ≡ psum: the same steps with the zero-padded sum
+    psum = {}
+    for tag in P10_PSUM_PATHS:
+        r = _p10_run(torch, rank, model, params0, batches[:P10_CMP_STEPS],
+                     tag, comm=ExchangeConfig(exchange='psum'), agree=False)
+        p_g, s_g = runs[tag]['snap']
+        psum[tag] = {
+            'params_equal': all(torch.equal(r['params'][k], p_g[k])
+                                for k in p_g),
+            'state_equal': _snapshots_equal(
+                torch, _state_snapshot(torch, r['state']), s_g),
+            'sites': r['sites'], 'launches': r['launches']}
+    # 'onestep': Eva fused and K-FAC shard.  The first step applies the
+    # cold buffers: Eva's zero statistics (held to the W = 1 step that sees
+    # zeros), K-FAC's zero cached inverses (its dense-plan weights stay
+    # put; the sharded head solves against the live factors)
+    onestep = {}
+    for tag in ('eva fused', 'kfac shard'):
+        r = _p10_run(torch, rank, model, params0, batches[:1], tag,
+                     sched=RefreshRuntime(pipeline='onestep'), agree=False)
+        zero = None
+        if rank == 0 and tag == 'eva fused':
+            ref = _p10_first_step_zero_stats(torch, model, params0,
+                                             batches[0], tag)
+            zero, _ = _p10_dist(torch, params0, ref, r['params'])
+            require(zero <= PARAM_RTOL, f'10b onestep {tag}: the first '
+                    f'step is {zero:.3e} from the zero-statistics step')
+        elif rank == 0:
+            dense = _p10_dense_paths(torch, model, params0, tag)
+            require(dense, f'10b onestep {tag}: no dense-plan weight')
+            zero = max((r['params'][k] - params0[k]).abs().max().item()
+                       for k in dense)
+        r2 = _p10_run(torch, rank, model, params0, batches, tag,
+                      sched=RefreshRuntime(pipeline='onestep'), agree=False)
+        onestep[tag] = {'first_step': zero, 'losses': r2['losses'],
+                        'lag': r2['lag'], 'launches': r2['launches']}
+    # the MLP's stacked 3 x 1000 x 1000 bucket, K-FAC with its sides sharded
+    mlp = _p10_mlp(torch, rank)
+    # the int8-compressed DP step (Eva composed)
+    comp = _p10_int8(torch, model, params0, batches)
+    for r in runs.values():
+        for k in ('params', 'state', 'snap'):
+            r.pop(k)
+    res.update(runs=runs, psum=psum, onestep=onestep, mlp=mlp, int8=comp)
+    del model, params0, batches
+    res['elastic'] = _p10_elastic(torch, rank, root)
+    res['seconds'] = time.perf_counter() - t0
+    return res
+
+
+def _p10_mlp(torch, rank):
+    from repro_torch.data.synthetic import ClassStream
+    from repro_torch.models import module as M
+    from repro_torch.models.simple import MLP, classifier_loss_fn
+    model = MLP([784, 1000, 1000, 1000, 1000, 10])
+    model.loss_fn = classifier_loss_fn(model)
+    params0 = M.init_params(model.param_specs(),
+                            torch.Generator().manual_seed(1), device='cuda')
+    data = ClassStream(batch=512, dim=784, classes=10, device='cuda')
+    batches = [data.batch_at(i) for i in range(P10_MLP_STEPS)]
+    r = _p10_run(torch, rank, model, params0, batches, 'mlp kfac shard',
+                 record=True, spec=P10_MLP)
+    for k in ('params', 'state', 'snap'):
+        r.pop(k)
+    return r
+
+
+def _p10_int8(torch, model, params0, batches):
+    from repro_torch.comm import metrics
+    from repro_torch.core.registry import make_optimizer
+    from repro_torch.kernels import launches
+    from repro_torch.train.compression import make_dp_train_step
+    from repro_torch.train.step import init_opt_state
+    opt, cap = make_optimizer('eva', lr=0.15)
+    state = init_opt_state(model, opt, cap, params0, batches[0],
+                           device='cuda')
+    step, init_err = make_dp_train_step(model, opt, cap, None, device='cuda')
+    params, err, losses, sats = params0, init_err(params0), [], []
+    metrics.reset()
+    launches.reset()
+    for batch in batches:
+        params, state, err, met = step(params, state, err, batch)
+        losses.append(float(met['loss']))
+        sats.append(float(met['comm_saturation']))
+    return {'losses': losses, 'saturation': sats,
+            'launches': launches.snapshot(), 'sites': metrics.snapshot()}
+
+
+def _p10_sum(results, get):
+    """Sum a launch dict over the ranks."""
+    out = collections.Counter()
+    for res in results:
+        out.update(get(res))
+    return dict(out)
+
+
+def _p10_check(torch, results, root):
+    """Hold 10b's and 10c's results; returns (launches summed over the
+    ranks, per-step launches, info)."""
+    from repro_torch.obs.events import validate_record
+    per_step, info = {}, {'ranks_seconds': [r['seconds'] for r in results]}
+    counts = collections.Counter()
+    r0 = results[0]
+    for rank, res in enumerate(results):
+        require(res['world_and_rank_outside'] == (1, None),
+                f'rank {rank}: world_and_rank outside a scope')
+    phase(f'10b W = {P10_WORLD}: {P10_STEPS} steps each over gloo, every '
+          'update held to the W = 1 step on the whole batch')
+    for tag, r in r0['runs'].items():
+        want = {k: v * P10_STEPS for k, v in P10_PATHS[tag][4].items()}
+        for rank, res in enumerate(results):
+            got = res['runs'][tag]['launches']
+            require(got == {k: want.get(k, 0) for k in got},
+                    f'10b {tag} rank {rank}: launches {got} != {want}')
+            require(res['runs'][tag]['losses'] == r['losses'],
+                    f'10b {tag}: rank {rank} losses differ from rank 0')
+        total = _p10_sum(results, lambda res: res['runs'][tag]['launches'])
+        counts.update(total)
+        per_step[f'p10 W=4 {tag} (summed over ranks)'] = {
+            k: v // P10_STEPS for k, v in total.items() if v}
+        _finite_and_falling(r['losses'], f'10b {tag}')
+        if tag == 'kfac shard':
+            bands = {k for k in r['calls'] if k.startswith('matvec_cols')}
+            require(bands == {'matvec_cols[1, 250, 1000]'},
+                    f'10b kfac shard: band products {bands}')
+        info[tag] = {'losses': r['losses'], 'worst_vs_w1': r['worst'],
+                     'w1_cap': P10_W1_RTOL.get(tag, PARAM_RTOL),
+                     'worst_leaf_vs_w1': r['worst_leaf'],
+                     'worst_vs_twin': r['twin'], 'twin_vs_w1': r['split'],
+                     'launches_summed': total}
+        print(f'  {tag}: loss {r["losses"][0]:.5f} -> {r["losses"][-1]:.5f}; '
+              f'each update within {r["worst"]:.2e} of the W = 1 step\'s '
+              f'norm (cap {P10_W1_RTOL.get(tag, PARAM_RTOL):.0e}; one leaf at most {r["worst_leaf"]:.2e} of its own), '
+              f'within {r["twin"]:.2e} of its one-process twin\'s (the '
+              f'twin {r["split"]:.2e} from the W = 1 step); launches over '
+              f'4 ranks '
+              f'{ {k: v for k, v in total.items() if v} }'
+              + (f'; band calls {r["calls"]}; matvec_cols on the path\'s '
+                 f'band inputs {r["kerr"]["matvec_cols"]:.2e} of its limit'
+                 if r['kerr'] else ''), flush=True)
+    for tag, p in r0['psum'].items():
+        for rank, res in enumerate(results):
+            q = res['psum'][tag]
+            require(q['params_equal'] and q['state_equal'],
+                    f'10b {tag} rank {rank}: gather != psum after '
+                    f'{P10_CMP_STEPS} steps')
+        counts.update(_p10_sum(results, lambda res: res['psum'][tag][
+            'launches']))
+        print(f'  {tag}: exchange gather = psum, atol 0, parameters and '
+              f'state after {P10_CMP_STEPS} steps on every rank', flush=True)
+    for tag, o in r0['onestep'].items():
+        if tag == 'eva fused':
+            require(o['first_step'] <= PARAM_RTOL,
+                    f'10b onestep {tag}: first step {o["first_step"]:.2e} '
+                    'from the zero-statistics step')
+        else:
+            require(o['first_step'] == 0.0, f'10b onestep {tag}: the cold '
+                    f'caches moved the dense-plan weights by '
+                    f'{o["first_step"]}')
+        require(o['lag'].get('pipeline_lag/stats') == 1,
+                f'10b onestep {tag}: lag {o["lag"]}')
+        _finite_and_falling(o['losses'], f'10b onestep {tag}')
+        total = _p10_sum(results, lambda res: res['onestep'][tag][
+            'launches'])
+        counts.update(total)
+        per_step[f'p10 W=4 onestep {tag} (summed over ranks)'] = {
+            k: v // P10_STEPS for k, v in total.items() if v}
+        info[f'onestep {tag}'] = o
+        print(f'  onestep {tag}: first step from zero statistics '
+              f'({o["first_step"]:.2e}); loss {o["losses"][0]:.5f} -> '
+              f'{o["losses"][-1]:.5f}; lag {o["lag"]}', flush=True)
+    m = r0['mlp']
+    bands = {k: v for k, v in m['calls'].items()
+             if k.startswith('matvec_cols')}
+    iters = SHARD['solve_iters']
+    require(bands == {'matvec_cols[3, 250, 1000]': 2 * iters * P10_MLP_STEPS,
+                      'matvec_cols[1, 250, 1000]': 2 * iters * P10_MLP_STEPS},
+            f'10b MLP kfac shard: band calls {bands}')
+    mtotal = _p10_sum(results, lambda res: res['mlp']['launches'])
+    counts.update(mtotal)
+    per_step['p10 W=4 MLP kfac shard (summed over ranks)'] = {
+        k: v // P10_MLP_STEPS for k, v in mtotal.items() if v}
+    require(all(map(math.isfinite, m['losses'])),
+            f'10b MLP kfac shard: losses {m["losses"]}')
+    info['mlp kfac shard'] = {
+        'losses': m['losses'], 'worst_vs_w1': m['worst'],
+        'w1_cap': P10_W1_RTOL['mlp kfac shard'],
+        'worst_vs_twin': m['twin'], 'twin_vs_w1': m['split'],
+        'band_calls_per_rank': bands}
+    print(f'  MLP 784-1000-1000-1000-1000-10 K-FAC shard: band calls per '
+          f'rank {bands}; each update within {m["worst"]:.2e} of the W = 1 '
+          f'step\'s norm (cap {P10_W1_RTOL["mlp kfac shard"]:.0e}), within {m["twin"]:.2e} of its one-process twin\'s '
+          f'(the twin {m["split"]:.2e} from the W = 1 step); matvec_cols on '
+          f'the stacked bands {m["kerr"]["matvec_cols"]:.2e} of its limit',
+          flush=True)
+    c = r0['int8']
+    require(c['saturation'] == [0.0] * P10_STEPS,
+            f'10b int8: comm_saturation {c["saturation"]}')
+    _finite_and_falling(c['losses'], '10b int8')
+    ctotal = _p10_sum(results, lambda res: res['int8']['launches'])
+    counts.update(ctotal)
+    per_step['p10 W=4 int8 eva (summed over ranks)'] = {
+        k: v // P10_STEPS for k, v in ctotal.items() if v}
+    sites = {
+        'grads/dp f32': r0['runs']['eva']['sites']['grads/dp'],
+        'stats/dp eva': r0['runs']['eva']['sites']['stats/dp'],
+        'stats/dp kfac': r0['runs']['kfac shard']['sites']['stats/dp'],
+        'refresh/kfac gather': r0['runs']['kfac shard']['sites'][
+            'refresh/kfac'],
+        'refresh/kfac psum': r0['psum']['kfac shard']['sites'][
+            'refresh/kfac'],
+        'refresh/foof gather': r0['runs']['foof']['sites']['refresh/foof'],
+        'refresh/foof psum': r0['psum']['foof']['sites']['refresh/foof'],
+        'factor/kfac': r0['runs']['kfac shard']['sites']['factor/kfac'],
+        'grads/dp int8': c['sites']['grads/dp'],
+    }
+    sites = {k: {f: v[f] for f in ('bytes_per_call', 'codec', 'mode')}
+             for k, v in sites.items()}
+    info['sites'] = sites
+    print('  bytes a call per site: ' + '; '.join(
+        f'{k} {v["bytes_per_call"]} ({v["mode"]})' for k, v in
+        sites.items()), flush=True)
+    print(f'  int8 DP step: comm_saturation 0 over {P10_STEPS} steps, loss '
+          f'{c["losses"][0]:.5f} -> {c["losses"][-1]:.5f}', flush=True)
+    phase(f'10c elastic: W = 4, SIGTERM at {P10_KILLS[0]}, restore at W = 2,'
+          f' SIGTERM at {P10_KILLS[1]}, restore at W = 4, '
+          f'{P10_CHAOS_STEPS} steps; a live world_fn 4 -> 2 -> 4')
+    for name, e in r0['elastic'].items():
+        base = e['base']
+        stitched = [x for h in e['chaos'] for x in h]
+        require([s for s, _ in stitched] == list(range(P10_CHAOS_STEPS)),
+                 f'10c {name}: steps {[s for s, _ in stitched]}')
+        rel = max(abs(a - b) / abs(b) for (_, a), (_, b)
+                  in zip(stitched, base))
+        require(rel <= TRAJ_RTOL, f'10c {name}: stitched run {rel:.3e} '
+                f'from the uninterrupted one')
+        live = e['live']
+        lrel = max(abs(a - b) / abs(b) for (_, a), (_, b)
+                   in zip(live, base[:P10_LIVE_STEPS]))
+        require([s for s, _ in live] == list(range(P10_LIVE_STEPS)),
+                 f'10c {name} live: steps {[s for s, _ in live]}')
+        require(lrel <= TRAJ_RTOL, f'10c {name} live resize: {lrel:.3e} '
+                'from the uninterrupted run')
+        recs = [json.loads(line) for line in (
+            Path(root) / name / 'chaos' / 'metrics.jsonl').read_text(
+        ).splitlines()]
+        bad = [r for r in recs if validate_record(r)]
+        require(not bad, f'10c {name}: invalid records {bad[:2]}')
+        resizes = [(r['world_from'], r['world_to'], r['source'])
+                   for r in recs if r['event'] == 'reshard']
+        require(resizes == [(4, 2, 'checkpoint'), (2, 4, 'checkpoint')],
+                f'10c {name}: reshard records {resizes}')
+        lrecs = [json.loads(line) for line in (
+            Path(root) / name / 'live' / 'metrics.jsonl').read_text(
+        ).splitlines()]
+        lres = [(r['world_from'], r['world_to'], r['source'])
+                for r in lrecs if r['event'] == 'reshard']
+        require(lres == [(4, 2, 'live'), (2, 4, 'live')],
+                f'10c {name} live: reshard records {lres}')
+        info[f'elastic {name}'] = {'stitched_max_rel': rel,
+                                   'live_max_rel': lrel,
+                                   'seconds': e['seconds']}
+        print(f'  {name}: stitched 4 -> 2 -> 4 run, every step once, within '
+              f'{rel:.3e} relative of the uninterrupted run (limit '
+              f'{TRAJ_RTOL}); live 4 -> 2 -> 4 within {lrel:.3e}; records '
+              f'{resizes}; {e["seconds"]:.1f} s', flush=True)
+    return dict(counts), per_step, info
+
+
+def multi_worker_phase(torch, rows):
+    """Phase 10: 10a in this process, 10b and 10c in four spawned ranks;
+    the launches of its paths go into the kernel rows."""
+    import shutil
+    from repro_torch.launch import workers
+    t0 = time.perf_counter()
+    counts, per_step, info = dp_w1_phase(torch)
+    torch.cuda.empty_cache()
+    root = ROOT / 'build' / 'smoke_elastic'
+    shutil.rmtree(root, ignore_errors=True)
+    print(f'transport: gloo, {P10_WORLD} ranks on 1 card', flush=True)
+    t1 = time.perf_counter()
+    results = workers.spawn(_p10_rank, P10_WORLD, args=(str(root),),
+                            backend='gloo', device='cuda',
+                            timeout=P10_TIMEOUT)
+    spawn_s = time.perf_counter() - t1
+    c2, p2, i2 = _p10_check(torch, results, root)
+    shutil.rmtree(root, ignore_errors=True)
+    for k, v in c2.items():
+        counts[k] = counts.get(k, 0) + v
+    per_step.update(p2)
+    _add_counts(rows, {k: counts.get(k, 0) for k in
+                       (row['name'] for row in rows)}, per_step)
+    require(counts.get('matvec_cols', 0) > 0,
+            'phase 10 launched no matvec_cols')
+    info.update(i2)
+    info['seconds'] = {'10a': t1 - t0, '10b_10c_spawn': spawn_s,
+                       'total': time.perf_counter() - t0}
+    print(json.dumps({'multi_worker_checks': info}))
+    print(f'  phase 10 took {info["seconds"]["total"]:.1f} s (10a '
+          f'{t1 - t0:.1f} s, the four ranks {spawn_s:.1f} s)', flush=True)
+
+
 def main() -> None:
     if not (SRC / 'repro_torch' / 'kernels' / 'csrc').is_dir():
         fail(f'no src/repro_torch beside {Path(__file__).name}: run it from '
@@ -2895,6 +3681,7 @@ def main() -> None:
     corpus, bare_step_ms = lm_phase(torch, rows)
     rest_phases(torch, rows, corpus, bare_step_ms)
     families_phase(torch, rows)
+    multi_worker_phase(torch, rows)
     print(f'total {time.perf_counter() - t0:.1f} s after device check')
     print(json.dumps({'kernels': rows}))
     print(smi)

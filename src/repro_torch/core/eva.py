@@ -21,6 +21,7 @@ from repro_torch.core.transform import (Extras, GradientTransformation,
                                         add_decayed_weights, chain, ema_trace,
                                         scale_by_schedule, tree_device,
                                         tree_map, tree_vdot)
+from repro_torch.schedule import pipeline as pipemod
 from repro_torch.schedule import policy as schedpol
 from repro_torch.schedule import runtime as schedrt
 
@@ -29,7 +30,7 @@ class EvaState(NamedTuple):
     running: kvlib.RunningStats
     cached: Any                   # KV snapshot applied at the last refresh
     sched: schedpol.SchedState
-    pipe: Any = None              # 'onestep' pipeline buffers; not ported
+    pipe: Any = None              # 'onestep': {'stats': PipelineState}
     trace: Any = None             # fused path: the f32 heavy-ball buffer
 
 
@@ -82,31 +83,37 @@ def _kv_init(params, extras, fields, policy, interval):
     plan = _stats_plan(flat, extras.stats, extras)
     zeros = bucketing.gather_tree(
         plan, _zeros_like_spec(_extract(extras.stats, fields)))
-    pol = schedrt.from_extras(extras).resolve(policy, interval)
+    rt = schedrt.from_extras(extras)
+    pol = rt.resolve(policy, interval)
+    dev = tree_device(params)
     return dict(running=kvlib.init_running(zeros),
                 cached=_eva_cached_init(pol, zeros),
-                sched=schedpol.init_state(pol, zeros, tree_device(params)))
+                sched=schedpol.init_state(pol, zeros, dev),
+                pipe=schedrt.init_pipe(rt, dev, zeros, refresh=False))
 
 
-def _kv_step(state, updates, extras, *, fields, policy, interval, kv_decay):
-    """EMA the fresh KVs and pick the applied snapshot.
+def _kv_step(state, updates, extras, *, fields, site, policy, interval,
+             kv_decay):
+    """EMA the fresh KVs, reduced over the data group in scope (staged in
+    'onestep' mode), and pick the applied snapshot.
 
     Returns ``(flat updates, plan, applied stats, new-state field dict)``.
     """
     rt = schedrt.from_extras(extras)
     pol = rt.resolve(policy, interval)
-    schedrt.resolve_pipe(rt, state.pipe)
+    pipe = schedrt.resolve_pipe(rt, state.pipe)
     flat = kvlib.flatten_params(updates)
     fresh_flat = _extract(extras.stats, fields)
     plan = _stats_plan(flat, fresh_flat, extras)
-    # The reference passes the fresh stats through pipeline.staged_pmean, a
-    # mean over the bound data-parallel axes.  On one device no axis is
-    # bound and it is the identity (sharding/constraints.py::pmean_stats).
-    fresh = bucketing.gather_tree(plan, fresh_flat)
+    fresh, pipe_stats = pipemod.staged_pmean(
+        bucketing.gather_tree(plan, fresh_flat),
+        None if pipe is None else pipe['stats'], site=site)
     stats, running = kvlib.update_running(state.running, fresh, kv_decay)
     used, sched, cached = _refresh_snapshot(pol, state.sched, stats,
                                             state.cached)
-    return flat, plan, used, dict(running=running, cached=cached, sched=sched)
+    return flat, plan, used, dict(
+        running=running, cached=cached, sched=sched,
+        pipe=None if pipe is None else {'stats': pipe_stats})
 
 
 def eva_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,
@@ -123,8 +130,8 @@ def eva_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,
                extras: Optional[Extras] = None):
         del params
         flat, plan, used, parts = _kv_step(
-            state, updates, extras, fields=fields, policy=policy,
-            interval=interval, kv_decay=kv_decay)
+            state, updates, extras, fields=fields, site='stats/eva',
+            policy=policy, interval=interval, kv_decay=kv_decay)
         out = pre.precondition_tree(flat, used, 'eva', gamma, plan=plan,
                                     impl=impl)
         return out, EvaState(**parts)
@@ -153,8 +160,8 @@ def eva_fused_update(lr=0.1, gamma: float = 0.03, kv_decay: float = 0.95,
                extras: Optional[Extras] = None):
         del params
         flat, plan, used, parts = _kv_step(
-            state, updates, extras, fields=fields, policy=policy,
-            interval=interval, kv_decay=kv_decay)
+            state, updates, extras, fields=fields, site='stats/eva',
+            policy=policy, interval=interval, kv_decay=kv_decay)
         u, partials = pre.precondition_tree_fused(
             flat, used, 'eva', gamma, plan=plan,
             trace=kvlib.flatten_params(state.trace), momentum=momentum,

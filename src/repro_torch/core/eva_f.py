@@ -29,7 +29,7 @@ class EvaFState(NamedTuple):
     running: kvlib.RunningStats
     cached: Any
     sched: schedpol.SchedState
-    pipe: Any = None              # 'onestep' pipeline buffers; not ported
+    pipe: Any = None              # 'onestep': {'stats': PipelineState}
     trace: Any = None             # fused path: the f32 EMA momentum buffer
 
 
@@ -50,8 +50,8 @@ def eva_f_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,
                extras: Optional[Extras] = None):
         del params
         flat, plan, used, parts = _kv_step(
-            state, updates, extras, fields=_FIELDS, policy=policy,
-            interval=interval, kv_decay=kv_decay)
+            state, updates, extras, fields=_FIELDS, site='stats/eva_f',
+            policy=policy, interval=interval, kv_decay=kv_decay)
         out = pre.precondition_tree(flat, used, 'eva_f', gamma, plan=plan,
                                     impl=impl)
         return out, EvaFState(**parts)
@@ -82,8 +82,8 @@ def eva_f_fused_update(gamma: float = 0.03, kv_decay: float = 0.95,
                extras: Optional[Extras] = None):
         del params
         flat, plan, used, parts = _kv_step(
-            state, updates, extras, fields=_FIELDS, policy=policy,
-            interval=interval, kv_decay=kv_decay)
+            state, updates, extras, fields=_FIELDS, site='stats/eva_f',
+            policy=policy, interval=interval, kv_decay=kv_decay)
         p, partials = pre.precondition_tree_fused(
             flat, used, 'eva_f', gamma, plan=plan, fold_momentum=False,
             impl=impl)

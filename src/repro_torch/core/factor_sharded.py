@@ -25,12 +25,13 @@ cached operator, recomputed under the same refresh schedule.
 Differences from the reference: ``FactorShardConfig.use_pallas`` is
 ``impl`` ('auto' | 'cuda' | 'torch', ``kernels/dispatch.py``), and the band
 partial goes through the kernel whenever ``impl`` resolves to 'cuda', one
-worker included (the reference takes its einsum there).  The port runs one
-process (``ownership.world_and_rank``), so the sum over workers is the
-identity; ``_band`` and ``_matvec_partial`` still take any ``world`` and
-``rank`` as plain ints, so every band of a W-way split can be evaluated on
-one device.  The reference's mesh axes and per-site byte telemetry
-(``site``) wait for the multi-device and telemetry layers.
+worker included (the reference takes its einsum there).  W and the rank
+come from the data group in scope (``ownership.world_and_rank``): each of W
+workers contracts only its own ``ceil(d/W)``-row band and the f32 sum over
+the group completes the product; outside a scope one worker holds the
+whole factor and the sum is the identity.  ``_band`` and
+``_matvec_partial`` take ``world`` and ``rank`` as plain ints, so every band
+of a W-way split can also be evaluated on one device.
 """
 from __future__ import annotations
 
@@ -186,7 +187,8 @@ def _binomial_coeffs(power: float, iters: int) -> tuple[float, ...]:
 
 def solve_damped_power(m: torch.Tensor, y: torch.Tensor, gamma,
                        power: float, *, cfg: FactorShardConfig, world: int,
-                       rank: Optional[int]) -> torch.Tensor:
+                       rank: Optional[int],
+                       site: Optional[str] = None) -> torch.Tensor:
     """Matrix-free ``Y (M + γI)^{-power}`` for PSD ``m`` (..., d, d) and
     ``y`` (..., R, d); ``gamma`` broadcasts over the leading dims.
 
@@ -194,16 +196,27 @@ def solve_damped_power(m: torch.Tensor, y: torch.Tensor, gamma,
     power > 0, converging as (1 - γ/c)^k with c = max_j Σ_i |M_ij| + γ.
     'cg': conjugate gradients on the SPD system, power 1 only (other powers
     take the series).  Both run ``cfg.solve_iters`` iterations with no
-    early exit, and every step stays on the device."""
+    early exit, and every step stays on the device.  ``site`` labels the
+    partial sums' byte record (one whole solve a call, as the
+    reference's)."""
     m = m.to(F32)
     y = y.to(F32).contiguous()
     gam = torch.as_tensor(gamma, dtype=F32, device=y.device)
     band = _band(m, world, rank)
     iters = int(cfg.solve_iters)
+    extra = {'solve_iters': iters,
+             'factor_shard_bytes': int(band.numel() * 4)}
+    recorded = []
 
     def mv(v):
-        return exchange.psum_partials(
-            _matvec_partial(band, v, world, rank, impl=cfg.impl), world)
+        # the byte record fires once a solve, as the reference's once a
+        # trace of its scan body
+        part = _matvec_partial(band, v, world, rank, impl=cfg.impl)
+        out = exchange.psum_partials(part, world,
+                                     site=None if recorded else site,
+                                     calls=iters, extra=extra)
+        recorded.append(True)
+        return out
 
     if cfg.solver == 'cg' and power == 1.0:
         # CG on (M + γI) xᵀ = yᵀ over the R rows of y at once: each row is
@@ -230,7 +243,7 @@ def solve_damped_power(m: torch.Tensor, y: torch.Tensor, gamma,
 
     # Generalized binomial series.  c >= λmax(M) + γ by the Gershgorin
     # column bound, itself summed from the band partials.
-    col = exchange.psum_partials(band.abs().sum(-2), world)
+    col = exchange.psum_partials(band.abs().sum(-2), world, site=None)
     c = col.amax(-1) + gam
     coeffs = _binomial_coeffs(float(power), iters)
     v, acc = y, coeffs[0] * y
@@ -355,10 +368,10 @@ def refresh_head(refresh: bool, stats: dict,
 def _apply_one(g: torch.Tensor, entry: dict, policies: tuple[str, str],
                m_in: torch.Tensor, m_out: torch.Tensor, *, power: float,
                cfg: FactorShardConfig, world: int,
-               rank: Optional[int]) -> torch.Tensor:
+               rank: Optional[int], site: Optional[str]) -> torch.Tensor:
     p_in, p_out = policies
     g32 = g.to(F32)
-    kw = dict(cfg=cfg, world=world, rank=rank)
+    kw = dict(cfg=cfg, world=world, rank=rank, site=site)
     if p_in == 'dense':
         g32 = entry['inv_in'] @ g32
     elif p_in == 'shard':
@@ -375,16 +388,17 @@ def _apply_one(g: torch.Tensor, entry: dict, policies: tuple[str, str],
 
 def apply_tree(flat: dict, plan: bucketing.BucketPlan, policies: dict,
                head: HeadState, factors: dict, *, power: float,
-               cfg: FactorShardConfig) -> dict:
+               cfg: FactorShardConfig, site: Optional[str] = None) -> dict:
     """Precondition the head buckets of ``flat`` ({path: grad}) in place of
     the dense cached-operator path.  ``factors``: {bucket_key: (m_in,
     m_out)} live EMAs, bucket-stacked.  One vectorized apply per stacked
-    bucket; the paths of a small bucket one at a time."""
+    bucket; the paths of a small bucket one at a time.  ``site``: the
+    label of the partial sums' byte record."""
     if not policies:
         return flat
     world, rank = ownership.world_and_rank()
     out = dict(flat)
-    kw = dict(power=power, cfg=cfg, world=world, rank=rank)
+    kw = dict(power=power, cfg=cfg, world=world, rank=rank, site=site)
     for b in plan.buckets:
         if b.key not in policies:
             continue

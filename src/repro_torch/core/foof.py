@@ -6,8 +6,9 @@ inverses are recomputed through ``schedule.runtime.sharded_refresh`` (input
 factor only, so its cost model is ``inverse_cost('left')``) when the refresh
 policy fires, decided on the host once a step, and skipped otherwise, as
 K-FAC's are; they are applied with one batched product per stacked bucket
-(``precondition_tree``'s ``foof_cached``).  One process: the reference's
-statistics mean over the data-parallel axes is the identity here.
+(``precondition_tree``'s ``foof_cached``).  The fresh AAᵀ is reduced over
+the data group in scope (``pipeline.staged_pmean``, the ``Extras.comm``
+stats codec).
 """
 from __future__ import annotations
 
@@ -19,11 +20,13 @@ from repro_torch.core import bucketing
 from repro_torch.core import kv as kvlib
 from repro_torch.core import precondition as pre
 from repro_torch.core.clipping import Epilogue, fused_tail, kl_normalize
+from repro_torch.comm import exchange as comm_exchange
 from repro_torch.core.eva import _extract, _stats_plan, _zeros_like_spec
 from repro_torch.core.transform import (Extras, GradientTransformation,
                                         add_decayed_weights, chain, ema_trace,
                                         scale_by_schedule, tree_device)
 from repro_torch.schedule import ownership
+from repro_torch.schedule import pipeline as pipemod
 from repro_torch.schedule import policy as schedpol
 from repro_torch.schedule import runtime as schedrt
 
@@ -32,7 +35,9 @@ class FoofState(NamedTuple):
     running: kvlib.RunningStats
     a_inv: dict
     sched: schedpol.SchedState
-    pipe: Any = None              # 'onestep' pipeline buffers; not ported
+    # 'onestep': {'stats': PipelineState (the reduced AAᵀ in flight),
+    # 'refresh': PipelineState (age only: a_inv is the buffer)}
+    pipe: Any = None
 
 
 def foof_preconditioner(gamma: float = 0.03, kf_decay: float = 0.95,
@@ -51,35 +56,50 @@ def foof_preconditioner(gamma: float = 0.03, kf_decay: float = 0.95,
         run = kvlib.init_running(zeros)
         a_inv = {k: torch.zeros_like(st.a_outer)
                  for k, st in run.stats.items()}
-        pol = schedrt.from_extras(extras).resolve(policy, interval)
+        rt = schedrt.from_extras(extras)
+        pol = rt.resolve(policy, interval)
+        dev = tree_device(params)
         return FoofState(running=run, a_inv=a_inv,
-                         sched=schedpol.init_state(pol, run.stats,
-                                                   tree_device(params)))
+                         sched=schedpol.init_state(pol, run.stats, dev),
+                         pipe=schedrt.init_pipe(rt, dev, zeros))
 
     def update(updates, state: FoofState, params=None,
                extras: Optional[Extras] = None):
         del params
         rt = schedrt.from_extras(extras)
+        comm = comm_exchange.from_extras(extras)
         pol = rt.resolve(policy, interval)
-        schedrt.resolve_pipe(rt, state.pipe)
+        pipe = schedrt.resolve_pipe(rt, state.pipe)
         flat = kvlib.flatten_params(updates)
         fresh_flat = _extract(extras.stats, fields)
         plan = _stats_plan(flat, fresh_flat, extras)
-        fresh = bucketing.gather_tree(plan, fresh_flat)
+        fresh, pipe_stats = pipemod.staged_pmean(
+            bucketing.gather_tree(plan, fresh_flat),
+            None if pipe is None else pipe['stats'],
+            codec=comm.stats, site='stats/foof')
         stats, running = kvlib.update_running(state.running, fresh, kf_decay)
 
         refresh, staleness = pol.decide(state.sched, stats)
-        a_inv = schedrt.sharded_refresh(
+        staged = schedrt.sharded_refresh(
             plan, schedpol.on_host(pol, refresh),
             lambda b, m: pre._damped_inv(m, gamma),
             {k: st.a_outer for k, st in stats.items()}, dict(state.a_inv),
-            cost=ownership.inverse_cost('left'), shard=rt.shard_refresh)
+            cost=ownership.inverse_cost('left'), shard=rt.shard_refresh,
+            comm=comm, site='refresh/foof',
+            pipe=None if pipe is None else pipe['refresh'])
+        if pipe is None:
+            used = a_inv = staged
+            new_pipe = None
+        else:
+            used, a_inv, pipe_ref = staged
+            new_pipe = {'stats': pipe_stats, 'refresh': pipe_ref}
         sched = schedpol.commit(pol, state.sched, stats, refresh, staleness)
 
-        ops = {k: kvlib.LayerStats(a_outer=v) for k, v in a_inv.items()}
+        ops = {k: kvlib.LayerStats(a_outer=v) for k, v in used.items()}
         out = pre.precondition_tree(flat, ops, 'foof_cached', gamma,
                                     plan=plan)
-        return out, FoofState(running=running, a_inv=a_inv, sched=sched)
+        return out, FoofState(running=running, a_inv=a_inv, sched=sched,
+                              pipe=new_pipe)
 
     return GradientTransformation(init, update)
 

@@ -6,10 +6,10 @@ damped inverses (π-split damping) are recomputed when the refresh policy
 fires and cached, bucket-stacked.  With ``Extras.factor`` tripping a
 bucket (``core/factor_sharded``), its oversized side is applied matrix-free
 from the live EMA through the ``matvec_cols`` kernel instead of being
-inverted.  One process: the reference's statistics reduction
-(``pipeline.staged_pmean`` with its codec) is the identity without a bound
-data-parallel axis (``sharding/constraints.py::issue_pmean_stats`` returns
-the tree as it is), so nothing stands in its place here.
+inverted.  The fresh factors are reduced over the data group in scope
+(``pipeline.staged_pmean`` with the ``Extras.comm`` stats codec, the one
+statistics exchange worth compressing: O(d²) a layer), and the refresh is
+shared among its workers (``schedule/runtime.py::sharded_refresh``).
 """
 from __future__ import annotations
 
@@ -22,11 +22,13 @@ from repro_torch.core import factor_sharded as fsh
 from repro_torch.core import kv as kvlib
 from repro_torch.core import precondition as pre
 from repro_torch.core.clipping import Epilogue, fused_tail, kl_clip_trace
+from repro_torch.comm import exchange as comm_exchange
 from repro_torch.core.eva import _extract, _stats_plan, _zeros_like_spec
 from repro_torch.core.transform import (Extras, GradientTransformation,
                                         add_decayed_weights, chain, ema_trace,
                                         scale_by_schedule, tree_device)
 from repro_torch.schedule import ownership
+from repro_torch.schedule import pipeline as pipemod
 from repro_torch.schedule import policy as schedpol
 from repro_torch.schedule import runtime as schedrt
 
@@ -35,7 +37,9 @@ class KfacState(NamedTuple):
     a_inv: dict
     b_inv: dict
     sched: schedpol.SchedState
-    pipe: Any = None              # 'onestep' pipeline buffers; not ported
+    # 'onestep': {'stats': PipelineState (the reduced factors in flight),
+    # 'refresh': PipelineState (age only: a_inv / b_inv are the buffer)}
+    pipe: Any = None
     # sharded-factor head buckets (Extras.factor tripped): cached dense-side
     # operators + frozen dampings.  None on the all-dense legacy path.
     head: Any = None
@@ -66,21 +70,25 @@ def kfac_preconditioner(gamma: float = 0.03, kf_decay: float = 0.95,
              for k in head_pol}, head_pol, fcfg, plan)
         rt = schedrt.from_extras(extras)
         pol = rt.resolve(policy, interval)
+        dev = tree_device(params)
         return KfacState(running=run, a_inv=a_inv, b_inv=b_inv,
-                         sched=schedpol.init_state(pol, run.stats,
-                                                   tree_device(params)),
-                         head=head)
+                         sched=schedpol.init_state(pol, run.stats, dev),
+                         pipe=schedrt.init_pipe(rt, dev, zeros), head=head)
 
     def update(updates, state: KfacState, params=None,
                extras: Optional[Extras] = None):
         del params
         rt = schedrt.from_extras(extras)
+        comm = comm_exchange.from_extras(extras)
         pol = rt.resolve(policy, interval)
-        schedrt.resolve_pipe(rt, state.pipe)
+        pipe = schedrt.resolve_pipe(rt, state.pipe)
         flat = kvlib.flatten_params(updates)
         fresh_flat = _extract(extras.stats, fields)
         plan = _stats_plan(flat, fresh_flat, extras)
-        fresh = bucketing.gather_tree(plan, fresh_flat)
+        fresh, pipe_stats = pipemod.staged_pmean(
+            bucketing.gather_tree(plan, fresh_flat),
+            None if pipe is None else pipe['stats'],
+            codec=comm.stats, site='stats/kfac')
         stats, running = kvlib.update_running(state.running, fresh, kf_decay)
 
         def one(b, args):
@@ -95,12 +103,20 @@ def kfac_preconditioner(gamma: float = 0.03, kf_decay: float = 0.95,
         # the dense sides are recomputed only on a refresh step, decided on
         # the host once for the step
         do_refresh = schedpol.on_host(pol, refresh)
-        new = schedrt.sharded_refresh(
+        staged = schedrt.sharded_refresh(
             dense_plan, do_refresh, one,
             {k: (st.a_outer, st.b_outer) for k, st in stats.items()
              if k not in head_pol},
             {k: (state.a_inv[k], state.b_inv[k]) for k in state.a_inv},
-            cost=ownership.inverse_cost('both'), shard=rt.shard_refresh)
+            cost=ownership.inverse_cost('both'), shard=rt.shard_refresh,
+            comm=comm, site='refresh/kfac',
+            pipe=None if pipe is None else pipe['refresh'])
+        if pipe is None:
+            used = new = staged
+            new_pipe = None
+        else:
+            used, new, pipe_ref = staged
+            new_pipe = {'stats': pipe_stats, 'refresh': pipe_ref}
         a_inv = {k: v[0] for k, v in new.items()}
         b_inv = {k: v[1] for k, v in new.items()}
         # the small dense side of a head bucket is recomputed under the same
@@ -112,15 +128,15 @@ def kfac_preconditioner(gamma: float = 0.03, kf_decay: float = 0.95,
         sched = schedpol.commit(pol, state.sched, stats, refresh, staleness)
 
         ops = {k: kvlib.LayerStats(a_outer=v[0], b_outer=v[1])
-               for k, v in new.items()}
+               for k, v in used.items()}
         out = pre.precondition_tree(flat, ops, 'kfac_cached', gamma,
                                     plan=dense_plan)
         if head_pol:
             out = fsh.apply_tree(out, plan, head_pol, head, head_factors,
-                                 power=1.0, cfg=fcfg)
+                                 power=1.0, cfg=fcfg, site='factor/kfac')
         return out, KfacState(
             running=running, a_inv=a_inv, b_inv=b_inv, sched=sched,
-            head=head)
+            pipe=new_pipe, head=head)
 
     return GradientTransformation(init, update)
 

@@ -15,6 +15,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch.comm import exchange as comm_exchange
 from repro_torch.core import bucketing
 from repro_torch.core import factor_sharded as fsh
 from repro_torch.core import kv as kvlib
@@ -38,7 +39,10 @@ class ShampooState(NamedTuple):
     p_in: dict    # cached (M + γI)^{-1/4}
     p_out: dict
     sched: schedpol.SchedState
-    pipe: Any = None              # 'onestep' pipeline buffers; not ported
+    # 'onestep': {'refresh': PipelineState (age only: p_in / p_out are the
+    # buffer)}.  The accumulators come from the local gradients (already
+    # reduced), so only the refresh exchange is staged.
+    pipe: Any = None
     # sharded-factor head buckets (Extras.factor tripped): cached dense-side
     # roots + frozen dampings.  None on the all-dense legacy path.
     head: Any = None
@@ -64,7 +68,8 @@ def shampoo_preconditioner(gamma: float = 1e-4, eps_init: float = 1e-6,
             lead = (len(b.paths),) + tuple(b.shape[:-2])
             m_in[b.key] = _eps_eye(eps_init, lead, b.shape[-2], dev)
             m_out[b.key] = _eps_eye(eps_init, lead, b.shape[-1], dev)
-        pol = schedrt.from_extras(extras).resolve(policy, interval)
+        rt = schedrt.from_extras(extras)
+        pol = rt.resolve(policy, interval)
         fcfg = fsh.from_extras(extras)
         _, head_pol = fsh.split_plan(plan, fcfg)
         head = fsh.init_head({k: (m_in[k], m_out[k]) for k in head_pol},
@@ -77,14 +82,14 @@ def shampoo_preconditioner(gamma: float = 1e-4, eps_init: float = 1e-6,
                    if k not in head_pol},
             sched=schedpol.init_state(pol, {'m_in': m_in, 'm_out': m_out},
                                       dev),
-            head=head)
+            pipe=schedrt.init_pipe(rt, dev), head=head)
 
     def update(updates, state: ShampooState, params=None,
                extras: Optional[Extras] = None):
         del params
         rt = schedrt.from_extras(extras)
         pol = rt.resolve(policy, interval)
-        schedrt.resolve_pipe(rt, state.pipe)
+        pipe = schedrt.resolve_pipe(rt, state.pipe)
         flat = kvlib.flatten_params(updates)
         plan = bucketing.build_plan(flat, predicate)
         g_b = bucketing.gather(plan, {p: flat[p] for p in plan.paths})
@@ -108,11 +113,19 @@ def shampoo_preconditioner(gamma: float = 1e-4, eps_init: float = 1e-6,
         # the dense sides are recomputed only on a refresh step, decided on
         # the host once for the step
         do_refresh = schedpol.on_host(pol, refresh)
-        new = schedrt.sharded_refresh(
+        staged = schedrt.sharded_refresh(
             dense_plan, do_refresh, one,
             {k: (m_in[k], m_out[k]) for k in m_in if k not in head_pol},
             {k: (state.p_in[k], state.p_out[k]) for k in state.p_in},
-            cost=ownership.inverse_cost('both'), shard=rt.shard_refresh)
+            cost=ownership.inverse_cost('both'), shard=rt.shard_refresh,
+            comm=comm_exchange.from_extras(extras), site='refresh/shampoo',
+            pipe=None if pipe is None else pipe['refresh'])
+        if pipe is None:
+            used = new = staged
+            new_pipe = None
+        else:
+            used, new, pipe_ref = staged
+            new_pipe = {'refresh': pipe_ref}
         p_in = {k: v[0] for k, v in new.items()}
         p_out = {k: v[1] for k, v in new.items()}
         # head buckets skip the root refresh: the oversized side is applied
@@ -124,15 +137,15 @@ def shampoo_preconditioner(gamma: float = 1e-4, eps_init: float = 1e-6,
         sched = schedpol.commit(pol, state.sched, accum, refresh, staleness)
 
         ops = {k: kvlib.LayerStats(a_outer=v[0], b_outer=v[1])
-               for k, v in new.items()}
+               for k, v in used.items()}
         out = pre.precondition_tree(flat, ops, 'shampoo_cached', gamma,
                                     plan=dense_plan)
         if head_pol:
             out = fsh.apply_tree(out, plan, head_pol, head, head_factors,
-                                 power=0.25, cfg=fcfg)
+                                 power=0.25, cfg=fcfg, site='factor/shampoo')
         return out, ShampooState(
             m_in=m_in, m_out=m_out, p_in=p_in, p_out=p_out, sched=sched,
-            head=head)
+            pipe=new_pipe, head=head)
 
     return GradientTransformation(init, update)
 

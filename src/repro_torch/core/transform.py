@@ -27,7 +27,9 @@ class Extras:
     raw_grads: the gradients before any transform; stats: captured KV
     statistics ({path: kv.LayerStats}); loss; step (filled in by ``chain``);
     plan: the ``bucketing.BucketPlan`` built at ``init_opt_state`` time;
-    sched: the ``schedule.runtime.RefreshRuntime``; factor: the
+    sched: the ``schedule.runtime.RefreshRuntime``; comm: the
+    ``comm.exchange.ExchangeConfig`` (the statistics and refresh codecs,
+    'gather' or 'psum'); factor: the
     ``core.factor_sharded.FactorShardConfig`` (or its kwargs) — what to do
     with oversized Kronecker factors; None keeps every factor dense.
     """
@@ -38,6 +40,7 @@ class Extras:
     step: Any = None
     plan: Any = None
     sched: Any = None
+    comm: Any = None
     factor: Any = None
 
 

@@ -14,7 +14,8 @@ ordinary preconditioned linear.
 
 On one device the reference routes in one group (its ``_n_data_shards()``
 is 1 outside a mesh, and ``constrain`` is the identity), so the group axis
-is not carried here; the multi-device dispatch waits with the mesh layers.
+is not carried here; the group-local dispatch of expert parallelism waits
+for a ``('data', 'model')`` layout (ROADMAP.md §1 item 13).
 """
 from __future__ import annotations
 

@@ -5,11 +5,14 @@ trainer emits through.
 Every record is one JSON object per line with an ``event`` type and the
 schema version ``v``; every other key is typed by ``SCHEMAS[event]`` and an
 unknown key is an error.  The schemas here are the reference's for the
-records ``Trainer.fit`` emits (``step``, ``refresh``, ``refresh_ownership``,
+records ``Trainer.fit`` and ``Trainer.fit_elastic`` emit (``step``,
+``refresh``, ``refresh_ownership``, ``reshard``, ``comm_exchange``,
 ``straggler``, ``span`` and ``profile``), so a record the port writes passes
-the reference's validator.  The scheduler's and the sharded factor's step
-fields come from their modules' ``METRIC_FIELDS``.  The comm-counter scope
-of the reference's ``Recorder`` comes with the multi-worker exchange.
+the reference's validator.  The scheduler's, the pipeline's and the sharded
+factor's step fields come from their modules' ``METRIC_FIELDS``.  The
+``Recorder`` owns a run-scoped view of the exchange byte counters
+(``comm/metrics.py``): the sites recorded while it is open belong to its
+run.
 """
 from __future__ import annotations
 
@@ -18,7 +21,9 @@ import json
 from pathlib import Path
 from typing import Any, Optional
 
+from repro_torch.comm import metrics as comm_metrics
 from repro_torch.core import factor_sharded as _fsh
+from repro_torch.schedule import pipeline as _pipemod
 from repro_torch.schedule import runtime as _schedrt
 
 SCHEMA_VERSION = 1
@@ -50,7 +55,9 @@ SCHEMAS: dict[str, dict[str, Field]] = {
         'loss': Field(_NUM, required=True),
         'grad_norm': Field(_NUM),
         'step_time_s': Field(_NUM, unit='s'),
+        'exchanged_mb_cum': Field(_NUM, unit='MiB'),
         **_declared(_schedrt),
+        **_declared(_pipemod),
         **_declared(_fsh),
     },
     'refresh': {
@@ -62,6 +69,24 @@ SCHEMAS: dict[str, dict[str, Field]] = {
         'world': Field(_INT, required=True, unit='workers'),
         'owners': Field(_DICT, required=True,
                         unit='bucket -> per-worker slice counts'),
+    },
+    # elastic resize: a checkpoint written at world_from resumed at
+    # world_to, or a live resize between steps (Trainer.fit_elastic)
+    'reshard': {
+        'world_from': Field(_INT, required=True, unit='workers'),
+        'world_to': Field(_INT, required=True, unit='workers'),
+        'pipeline': Field(_STR, required=True,
+                          unit="in-flight buffers: 'drained'|'kept'|'none'"),
+        'source': Field(_STR, required=True,
+                        unit="'checkpoint' (restore) | 'live' (between steps)"),
+        'step': Field(_INT, unit='index'),
+        'slices_total': Field(_INT, unit='owned refresh slices'),
+        'slices_moved': Field(_INT, unit='slices with a new owner'),
+    },
+    # per-call-site logical exchange bytes (each site dict is checked by
+    # _validate_site; codec extras stay open)
+    'comm_exchange': {
+        'sites': Field(_DICT, required=True),
     },
     'straggler': {
         'step': Field(_INT, required=True, unit='index'),
@@ -86,6 +111,18 @@ SCHEMAS: dict[str, dict[str, Field]] = {
 }
 
 
+_SITE_FIELDS = {
+    'bytes_per_call': Field(_INT, required=True, unit='B'),
+    'codec': Field(_STR, required=True),
+    'mode': Field(_STR, required=True),
+    'traces': Field(_INT),
+    'world': Field(_INT),
+    'pods': Field((list, tuple), unit='(n_pods, pod_size)'),
+    'ici_bytes': Field(_INT, unit='B'),
+    'dcn_bytes': Field(_INT, unit='B'),
+}
+
+
 class SchemaError(ValueError):
     pass
 
@@ -96,6 +133,19 @@ def _check(value, fld: Field, where: str) -> list[str]:
         return [f'{where}: expected {"/".join(t.__name__ for t in fld.types)}'
                 f', got {type(value).__name__} ({value!r})']
     return []
+
+
+def _validate_site(site: str, rec: Any) -> list[str]:
+    where = f'comm_exchange.sites[{site!r}]'
+    if not isinstance(rec, dict):
+        return [f'{where}: expected object, got {type(rec).__name__}']
+    errs = []
+    for name, fld in _SITE_FIELDS.items():
+        if name in rec:
+            errs += _check(rec[name], fld, f'{where}.{name}')
+        elif fld.required:
+            errs.append(f'{where}: missing required field {name!r}')
+    return errs
 
 
 def infer_event(rec: dict) -> Optional[str]:
@@ -127,10 +177,15 @@ def validate_record(rec: Any) -> list[str]:
         if key in ('event', 'v'):
             continue
         fld = schema.get(key)
+        if fld is None and '/' in key:
+            fld = schema.get(key.split('/', 1)[0] + '/*')
         if fld is None:
             errs.append(f'{ev}: unknown field {key!r}')
             continue
         errs += _check(value, fld, f'{ev}.{key}')
+    if ev == 'comm_exchange' and isinstance(rec.get('sites'), dict):
+        for site, srec in rec['sites'].items():
+            errs += _validate_site(site, srec)
     return errs
 
 
@@ -142,6 +197,9 @@ def step_fields(metrics: dict) -> dict:
         out['refreshes'] = int(metrics['refreshes'])
         out['staleness'] = float(metrics['staleness'])
         out['refresh_since'] = int(metrics['refresh_since'])
+    for key, value in metrics.items():
+        if key.startswith('pipeline_lag'):
+            out[key] = int(value)
     if 'factor_solve_iters' in metrics:
         out['factor_solve_iters'] = int(metrics['factor_solve_iters'])
         out['factor_shard_bytes'] = float(metrics['factor_shard_bytes'])
@@ -149,14 +207,15 @@ def step_fields(metrics: dict) -> dict:
 
 
 class Recorder:
-    """JSONL sink.  ``emit`` stamps the envelope (``event``, ``v``),
-    validates the record (a malformed record raises at its emit site),
-    appends one line and returns the record.  ``path=None`` keeps the
-    records in memory only."""
+    """JSONL sink and run-scoped comm-counter view.  ``emit`` stamps the
+    envelope (``event``, ``v``), validates the record (a malformed record
+    raises at its emit site), appends one line and returns the record.
+    ``path=None`` keeps the records in memory only."""
 
     def __init__(self, path: Optional[Any] = None, validate: bool = True):
         self._f = Path(path).open('a') if path is not None else None
         self._validate = validate
+        self._scope = comm_metrics.push_scope()
         self.records: list[dict] = []
 
     def emit(self, event: str, **fields: Any) -> dict:
@@ -171,7 +230,14 @@ class Recorder:
             self._f.flush()
         return rec
 
+    def comm_sites(self) -> dict:
+        """The exchange sites recorded while this recorder was open."""
+        return self._scope.snapshot() if self._scope is not None else {}
+
     def close(self) -> None:
+        if self._scope is not None:
+            comm_metrics.pop_scope(self._scope)
+            self._scope = None
         if self._f is not None:
             self._f.close()
             self._f = None

@@ -15,8 +15,9 @@ for a NamedTuple field, ``[i]`` for a sequence entry; None subtrees have no
 leaf.  The port keeps parameter-shaped trees as flat dicts keyed by
 '/'-joined paths where the reference nests dicts, so a key ``'fc0/w'`` is
 written ``['fc0']['w']``.  Checkpoints therefore cross between the packages
-in both directions.  Resharding onto another world size waits for the
-multi-worker port.
+in both directions.  Leaves are the full logical tensors, so a checkpoint
+written at one world size restores at another (``schedule/reshard.py``,
+``Trainer.fit_elastic``).
 """
 from __future__ import annotations
 

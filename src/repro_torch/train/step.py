@@ -1,8 +1,8 @@
 """Train-step factory: loss → (grads, tap-grads) → KV stats → optimizer.
 
 PyTorch port of ``compute_grads_and_stats``, ``make_train_step``,
-``make_phased_step``, ``init_opt_state`` and ``stats_plan_of`` in
-``repro/train/step.py``.  The step runs eagerly and
+``make_dp_step``, ``make_phased_step``, ``init_opt_state`` and
+``stats_plan_of`` in ``repro/train/step.py``.  The step runs eagerly and
 returns new parameters and state without touching its inputs.  Nothing in it
 reads a value back to the host, so a step only queues work on the card; the
 caller syncs when it reads a metric.
@@ -17,12 +17,15 @@ from typing import Any, Callable, Optional
 
 import torch
 
+from repro_torch.comm import exchange
+from repro_torch.comm import group as group_mod
 from repro_torch.core import bucketing
 from repro_torch.core import factor_sharded as fsh
 from repro_torch.core import kv as kvlib
 from repro_torch.core.transform import (Extras, GradientTransformation,
                                         apply_updates, tree_map)
 from repro_torch.device import resolve_device
+from repro_torch.schedule import pipeline as pipemod
 from repro_torch.schedule import runtime as schedrt
 
 F32 = torch.float32
@@ -106,12 +109,14 @@ def compute_grads_and_stats(model, params: dict, batch: dict,
 
 def _step_metrics(loss, grads, new_state) -> dict:
     """The loss, the gradient norm, the refresh counters
-    (``schedule_metrics``) and, when a factor is sharded,
+    (``schedule_metrics``), the pipeline's staleness in 'onestep' mode
+    (``pipeline_metrics``) and, when a factor is sharded,
     ``factor_sharded.step_metrics``; all 0-d device tensors."""
     grad_norm = torch.sqrt(sum((g.to(F32) ** 2).sum()
                                for _, g in sorted(grads.items())))
     metrics = {'loss': loss, 'grad_norm': grad_norm}
     metrics.update(schedrt.schedule_metrics(new_state))
+    metrics.update(pipemod.pipeline_metrics(new_state))
     metrics.update(fsh.step_metrics(new_state))
     return metrics
 
@@ -125,6 +130,7 @@ def make_train_step(model, opt: GradientTransformation,
                     taps_fn: Optional[Callable] = None,
                     microbatches: int = 1,
                     sched: Optional[schedrt.RefreshRuntime] = None,
+                    comm: Optional[Any] = None,
                     factor: Optional[Any] = None,
                     device='cuda') -> Callable:
     """Build ``train_step(params, opt_state, batch) -> (params, state,
@@ -134,8 +140,10 @@ def make_train_step(model, opt: GradientTransformation,
     :func:`taps_caller`; full taps for K-FAC).  ``microbatches > 1`` splits
     the batch on dim 0 and accumulates: grads summed in f32, KV stats
     summed, both (and the loss) divided by the count, as the reference's
-    scan.  ``sched`` is the refresh runtime and ``factor`` the
-    ``core.factor_sharded.FactorShardConfig``, both threaded through
+    scan.  ``sched`` is the refresh runtime, ``comm`` the
+    ``comm.exchange.ExchangeConfig`` (the codecs of the statistics and
+    refresh exchanges under a data group in scope) and ``factor`` the
+    ``core.factor_sharded.FactorShardConfig``, all threaded through
     ``Extras``; None keeps every factor dense.  The metrics hold the loss,
     the gradient norm, the refresh counters of ``schedule_metrics`` (when a
     transform is scheduled) and, when a factor is sharded,
@@ -175,17 +183,82 @@ def make_train_step(model, opt: GradientTransformation,
             grads, opt_state, params=params,
             extras=Extras(stats=stats, loss=loss,
                           plan=_plan_for_stats(grads, stats), sched=sched,
-                          factor=factor))
+                          comm=comm, factor=factor))
         new_params = apply_updates(params, updates)
         return new_params, new_state, _step_metrics(loss, grads, new_state)
 
     return train_step
 
 
+def _local_rows(batch: dict, world: int, rank: int) -> dict:
+    """This worker's shard of the global batch: rows ``[rank·B/W,
+    (rank+1)·B/W)`` of every leaf (the reference's ``P('data')``)."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % world:
+            raise ValueError(f'batch dim {v.shape[0]} of {k!r} does not '
+                             f'divide over {world} workers')
+        n = v.shape[0] // world
+        out[k] = v[rank * n:(rank + 1) * n]
+    return out
+
+
+def make_dp_step(model, opt: GradientTransformation,
+                 capture: kvlib.CaptureConfig, group: Any = None,
+                 taps_fn: Optional[Callable] = None,
+                 sched: Optional[schedrt.RefreshRuntime] = None,
+                 comm: Optional[Any] = None,
+                 factor: Optional[Any] = None,
+                 device='cuda') -> Callable:
+    """The explicit data-parallel step over ``group`` (a
+    ``torch.distributed`` group, a ``comm.group.DataScope`` — a pod scope
+    too — or None for the default group): the engine of
+    ``Trainer.fit_elastic``.  Call it in every member with the same global
+    batch; each takes its own rows.
+
+    Parameters and optimizer state are replicated.  The loss is
+    mean-reduced, the gradients and the KV statistics mean-all-reduced in
+    f32 (sites ``grads/dp`` and ``stats/dp``); the optimizer runs with the
+    group in scope, so the worker-sharded refresh, the owned-slice exchange
+    and the factor bands see W workers (the optimizer's own mean of the
+    already identical statistics is a further exact, idempotent exchange,
+    as in the reference).  At W = 1 every exchange sums one value and
+    divides by 1, so the trajectory is ``make_train_step``'s bit for bit.
+    The same metrics as ``make_train_step``."""
+    dev = resolve_device(device)
+    sched = sched if sched is not None else schedrt.RefreshRuntime()
+    make_taps = taps_caller(taps_fn)
+    scope = group_mod.scope_of(group)
+
+    def dp_step(params, opt_state, batch):
+        with group_mod.in_scope(scope):
+            local = _local_rows(_to_device(batch, dev), scope.world,
+                                scope.rank)
+            loss, grads, stats = compute_grads_and_stats(
+                model, params, local, capture, make_taps(params, local))
+            loss = exchange.allreduce_mean_tree(loss, codec='f32')[0]
+            grads, _, _ = exchange.allreduce_mean_tree(
+                grads, codec='f32', site='grads/dp')
+            if stats is not None:
+                stats, _, _ = exchange.allreduce_mean_tree(
+                    stats, codec='f32', site='stats/dp')
+            updates, new_state = opt.update(
+                grads, opt_state, params=params,
+                extras=Extras(stats=stats, loss=loss,
+                              plan=_plan_for_stats(grads, stats),
+                              sched=sched, comm=comm, factor=factor))
+            new_params = apply_updates(params, updates)
+            return new_params, new_state, _step_metrics(loss, grads,
+                                                        new_state)
+
+    return dp_step
+
+
 def make_phased_step(model, opt: GradientTransformation,
                      capture: kvlib.CaptureConfig,
                      taps_fn: Optional[Callable] = None,
                      sched: Optional[schedrt.RefreshRuntime] = None,
+                     comm: Optional[Any] = None,
                      factor: Optional[Any] = None,
                      device='cuda') -> tuple[Callable, Callable, Callable]:
     """The train step cut at its phase boundaries, for span timing:
@@ -208,7 +281,7 @@ def make_phased_step(model, opt: GradientTransformation,
             grads, opt_state, params=params,
             extras=Extras(stats=stats, loss=loss,
                           plan=_plan_for_stats(grads, stats), sched=sched,
-                          factor=factor))
+                          comm=comm, factor=factor))
         return updates, new_state, _step_metrics(loss, grads, new_state)
 
     def apply_fn(params, updates):
@@ -221,22 +294,25 @@ def init_opt_state(model, opt: GradientTransformation,
                    capture: kvlib.CaptureConfig, params: dict, batch: dict,
                    taps_fn: Optional[Callable] = None,
                    sched: Optional[schedrt.RefreshRuntime] = None,
+                   comm: Optional[Any] = None,
                    factor: Optional[Any] = None,
                    device='cuda'):
     """Materialized optimizer state.  The stats' shapes come from one
     forward/backward pass on ``batch``; the state holds zeros of them.
-    ``taps_fn``, ``sched`` and ``factor`` must be the train step's."""
+    ``taps_fn``, ``sched``, ``comm`` and ``factor`` must be the train
+    step's."""
     dev = resolve_device(device)
     sched = sched if sched is not None else schedrt.RefreshRuntime()
     if not capture.active:
-        return opt.init(params, Extras(sched=sched, factor=factor))
+        return opt.init(params, Extras(sched=sched, comm=comm,
+                                       factor=factor))
     batch = _to_device(batch, dev)
     _, _, stats = compute_grads_and_stats(
         model, params, batch, capture, taps_caller(taps_fn)(params, batch))
     zero_stats = tree_map(torch.zeros_like, stats)
     return opt.init(params, Extras(stats=zero_stats,
                                    plan=_plan_for_stats(params, zero_stats),
-                                   sched=sched, factor=factor))
+                                   sched=sched, comm=comm, factor=factor))
 
 
 def stats_plan_of(model, capture: kvlib.CaptureConfig, params: dict,

@@ -40,7 +40,35 @@ def test_port_files_found():
             'whisper_tiny.py', 'kimi_k2_1t_a32b.py', 'mamba2_780m.py',
             'qwen2_0_5b.py', 'codeqwen1_5_7b.py', 'glm4_9b.py',
             'command_r_35b.py', 'llava_next_34b.py',
-            'jamba_v0_1_52b.py'} <= names
+            'jamba_v0_1_52b.py', 'codec.py', 'metrics.py', 'group.py',
+            'exchange.py', 'ownership.py', 'reshard.py', 'compression.py',
+            'workers.py', 'runtime.py'} <= names
+
+
+MULTI_WORKER_MODULES = ['repro_torch.comm.codec', 'repro_torch.comm.metrics',
+                        'repro_torch.comm.group', 'repro_torch.comm.exchange',
+                        'repro_torch.schedule.ownership',
+                        'repro_torch.schedule.pipeline',
+                        'repro_torch.schedule.reshard',
+                        'repro_torch.schedule.runtime',
+                        'repro_torch.train.compression',
+                        'repro_torch.launch.workers',
+                        'repro_torch.train.trainer']
+
+
+@pytest.mark.parametrize('name', MULTI_WORKER_MODULES)
+def test_multi_worker_modules_import_quietly(name):
+    """Importing a module of the multi-worker layers starts no process
+    and joins no group; outside a data group in scope the world is one."""
+    import importlib
+
+    import torch.distributed as dist
+    importlib.import_module(name)
+    assert not dist.is_initialized()
+    from repro_torch.comm import group
+    from repro_torch.schedule import ownership
+    assert group.current() is None
+    assert ownership.world_and_rank() == (1, None)
 
 
 def _no_card():

@@ -295,8 +295,10 @@ def test_trainer_entry_points_and_refusals(tmp_path):
         autotune_cache = 'tiles.json'
     with pytest.raises(NotImplementedError, match='item 13'):
         Trainer(model, opt, cap, cfg, kernel=Kernel(), device='cpu')
-    with pytest.raises(NotImplementedError, match='item 12'):
-        Trainer(model, opt, cap, cfg, comm=object(), device='cpu')
-    tr = Trainer(model, opt, cap, cfg, device='cpu')
-    with pytest.raises(NotImplementedError, match='item 12'):
+    # the exchange config is accepted (the multi-worker layers are ported);
+    # fit_elastic needs a started process group
+    from repro_torch.comm.exchange import ExchangeConfig
+    tr = Trainer(model, opt, cap, cfg, comm=ExchangeConfig(), device='cpu')
+    assert tr.comm == ExchangeConfig()
+    with pytest.raises(RuntimeError, match='started group'):
         tr.fit_elastic(params, data)
