@@ -156,6 +156,25 @@ Phases; any failure stops the run with a non-zero exit:
               reshard records (4, 2) and (2, 4); a live world_fn 4 -> 2 ->
               4 likewise.  The launches of 10a and of 10b summed over the
               ranks go into the kernel rows.
+11. cli     — the training CLI and the examples on the card.  11a:
+              ``repro_torch.launch.train.main`` in this process on
+              demo_lm('100m') at 16 x 512 tokens: Eva fused with
+              ``--profile`` (4 steps, checkpoints every 2), Eva composed
+              with ``--kernel-impl cuda`` (2 steps) and K-FAC with the
+              head's 32768-wide side sharded (2 steps), each beside its
+              ``--kernel-impl torch`` twin from the same weights: every
+              step's loss within 1e-4 of the twin's, the wrapper launches
+              exact (eva_fused 8 a step, bilinear and rank1_update 8,
+              matvec_cols 32) and none in the twin, the port's device
+              kernels in a trace of each Eva run at most the wrapper count
+              times each kernel's launches a call and at most 1% short,
+              every record valid; the host ms of one LMStream batch.  11b:
+              ``scripts/obs_report_torch.py --validate`` and the breakdown
+              of the profiled run; 11c: ``python -m
+              repro_torch.launch.train --arch demo --steps 4`` and the five
+              ``examples/*_torch.py`` at a few steps; 11b and 11c as
+              processes started together, each exiting 0.  The launches
+              of 11a go into the kernel rows.
 
 The line before the card line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -166,6 +185,7 @@ import collections
 import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -314,6 +334,45 @@ MAMBA_BATCH, MAMBA_SEQ = 4, 2048
 WHISPER_BATCH, WHISPER_FRAMES = 8, 1024
 # 9d: jamba-v0.1-52b, one whole period of 8 layers at published widths
 JAMBA_DEPTH, JAMBA_PARAMS, JAMBA_PROMPT = 8, 13_267_656_416, 2048
+# phase 11: the training CLI (repro_torch.launch.train.main) on demo-100m at
+# full width, 16 x 512 tokens a step; tag -> (flags, the port's kernel
+# launches a step, whether the run is traced).  Each run beside its
+# --kernel-impl torch twin from the same weights, step by step within
+# TRAJ_RTOL.  A trace may lose a device event (CUPTI once dropped one) but
+# never gain one: its port kernels at most the wrapper count times
+# DEVICE_LAUNCHES, and short by at most CLI_TRACE_SHORT of it.  A trace
+# costs about 0.45 ms an event on the host (K-FAC's two steps took 15 s
+# more traced on an H100 host), so K-FAC's run is not traced:
+# matvec_cols' one device launch a call is phase 6's check
+CLI_BASE = ['--arch', 'demo-100m', '--batch', '16', '--seq-len', '512',
+            '--log-every', '1']
+CLI_RUNS = {
+    'cli eva fused profile': (['--opt', 'eva', '--fused', '--profile',
+                               '--steps', '4', '--ckpt-every', '2'],
+                              {'eva_fused': LM_WEIGHTS}, True),
+    'cli eva composed cuda': (['--opt', 'eva', '--kernel-impl', 'cuda',
+                               '--steps', '2'],
+                              {'bilinear': LM_WEIGHTS,
+                               'rank1_update': LM_WEIGHTS}, True),
+    'cli kfac head shard': (['--opt', 'kfac', '--head-policy', 'shard',
+                             '--head-threshold', '32768', '--steps', '2'],
+                            {'matvec_cols': LM_SHARD['solve_iters']}, False),
+}
+CLI_TRACE_SHORT = 0.01
+# 11c: the CLI on demo_lm('small') and the five examples, as subprocesses
+# started together, each at a few steps
+CLI_SUBPROCESSES = {
+    'cli demo': ['-m', 'repro_torch.launch.train', '--arch', 'demo',
+                 '--steps', '4', '--out-dir', 'build/smoke_cli/sub'],
+    'quickstart': ['examples/quickstart_torch.py'],
+    'train_lm': ['examples/train_lm_torch.py', '--steps', '4',
+                 '--log-every', '1', '--out-dir', 'build/smoke_cli/ex'],
+    'autoencoder_eva': ['examples/autoencoder_eva_torch.py', '--steps', '3'],
+    'optimizer_comparison': ['examples/optimizer_comparison_torch.py',
+                             '--steps', '3'],
+    'serve_lm': ['examples/serve_lm_torch.py'],
+}
+CLI_SUB_TIMEOUT = 300
 
 
 def fail(msg: str):
@@ -1613,11 +1672,11 @@ def times_phase(torch, err, counts, per_step, model, params0, batches):
 
     _steps_and_profile(torch, model, params0, batches,
                        _rank_one_variants(MAIN_PATHS), list(MAIN_PATHS),
-                       rounds=5, per_round=10, key='ae')
+                       rounds=3, per_round=10, key='ae')
     # K-FAC and Shampoo: fewer, shorter rounds (Shampoo's dense sides run
     # eigh every step)
     _steps_and_profile(torch, model, params0, batches, _solver_variants(),
-                       ['kfac'], rounds=3, per_round=3, key='solver')
+                       ['kfac'], rounds=2, per_round=3, key='solver')
     return rows
 
 
@@ -1770,7 +1829,7 @@ def lm_setup(torch):
     """demo_lm('100m') with nothing cut, its weights from a seeded
     generator, and LM_STEPS batches of LMStream(vocab 32768, 16 x 512)."""
     from repro_torch.configs.registry import demo_lm
-    from repro_torch.data.synthetic import LMStream
+    from repro_torch.launch import train as cli
     from repro_torch.models import module as M
     from repro_torch.models.registry import build_model
     cfg = demo_lm('100m')
@@ -1779,8 +1838,12 @@ def lm_setup(torch):
                             torch.Generator().manual_seed(0), device='cuda')
     n_params = sum(v.numel() for v in params0.values())
     require(n_params == LM_PARAMS, f'demo-100m has {n_params} parameters')
+    # the CLI's own stream (seed 0), kept for phase 11's CLI runs: a
+    # vocab-32768 chain takes tens of seconds to build
     t0 = time.perf_counter()
-    data = LMStream(**LM_STREAM, device='cuda')
+    data = cli.lm_stream(LM_STREAM['vocab'], LM_STREAM['seq_len'],
+                         LM_STREAM['batch'], 'cuda')
+    require(data.seed == LM_STREAM['seed'], 'the CLI stream is not seed 0')
     t1 = time.perf_counter()
     batches = [data.batch_at(i) for i in range(LM_STEPS)]
     t2 = time.perf_counter()
@@ -1955,7 +2018,7 @@ def lm_times(torch, rows, model, params0, batches):
     del layers, fns
     # row 9: the head's 768 rows against its symmetric 32768 x 32768 output
     # factor, a step's 32 calls in each run (about 1 s): one warm-up run
-    # and one run a repeat
+    # and one timed run (one repeat: the budget of phase 11)
     d_model, vocab = params0['lm_head/w'].shape
     reps = LM_SHARD['solve_iters']
     gen = torch.Generator(device='cuda').manual_seed(400)
@@ -1965,7 +2028,7 @@ def lm_times(torch, rows, model, params0, batches):
     fns, work = _cols_fns(torch, [(g, a)], reps)
     out['matvec_cols'] = {'calls_per_step': reps,
                           **_times(torch, *fns, work, reps, 1, warmup=1,
-                                   host_reps=1)}
+                                   host_reps=1, repeats=1)}
     del g, a, fns
     for row in rows:
         if row['name'] in out:
@@ -1973,7 +2036,7 @@ def lm_times(torch, rows, model, params0, batches):
             _print_times(row['name'], out[row['name']])
     return _steps_and_profile(torch, model, params0, batches,
                               _rank_one_variants(LM_PATHS), list(LM_PATHS),
-                              rounds=3, per_round=3, key='lm')
+                              rounds=1, per_round=3, key='lm')
 
 
 # ---------------------------------------------------------------------------
@@ -2207,7 +2270,6 @@ def fit_phase(torch, corpus, bare_step_ms):
     launches per step."""
     phase('8c Trainer.fit: demo_lm(100m), Eva fused under adaptive, '
           'MemmapLM + Prefetcher, checkpoint every 4, resume')
-    import os
     import shutil
     from repro_torch.configs.registry import demo_lm
     from repro_torch.data.memmap_loader import write_tokens
@@ -3038,7 +3100,6 @@ def dp_w1_phase(torch):
           'autoencoder (Eva fused, Eva-f fused, K-FAC shard, Shampoo shard, '
           f'{P10_STEPS} steps each) and fit_elastic against fit on '
           f'demo-100m ({P10_FIT_STEPS} steps), bit for bit')
-    import os
     import shutil
     import tempfile
     import torch.distributed as dist
@@ -3288,7 +3349,6 @@ def _p10_dense_paths(torch, model, params0, tag):
 
 def _p10_elastic(torch, rank, root):
     """10c: chaos and live resizes of Eva and K-FAC on the autoencoder."""
-    import os
     import signal
     from repro_torch.core.registry import make_optimizer
     from repro_torch.data.synthetic import AEStream
@@ -3338,7 +3398,6 @@ def _p10_elastic(torch, rank, root):
 
 def _p10_rank(rank, world, root):
     """One rank of 10b and 10c (four ranks over gloo on the one card)."""
-    import os
     os.environ.setdefault('CUBLAS_WORKSPACE_CONFIG', ':4096:8')
     import torch
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3658,6 +3717,186 @@ def multi_worker_phase(torch, rows):
           f'{t1 - t0:.1f} s, the four ranks {spawn_s:.1f} s)', flush=True)
 
 
+# ---------------------------------------------------------------------------
+# 11. the CLI and the examples on the card
+
+
+def _cli_run(torch, flags, out_dir, trace):
+    """One in-process run of the CLI: (its step records' losses and ms,
+    the metrics path, the wrapper launch counts, the port's device kernels
+    in its trace or None).  Every record must validate."""
+    from repro_torch.kernels import launches
+    from repro_torch.launch import train as cli
+    from repro_torch.obs.events import validate_record
+    launches.reset()
+    argv = CLI_BASE + flags + ['--out-dir', str(out_dir)]
+    if trace:
+        from torch.autograd import DeviceType
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            history = cli.main(argv)
+            torch.cuda.synchronize()
+        device = sum(e.count for e in prof.key_averages()
+                     if e.device_type == DeviceType.CUDA and 'repro::' in e.key)
+    else:
+        history = cli.main(argv)
+        device = None
+    counts = launches.snapshot()
+    path, = Path(out_dir).glob('*/metrics.jsonl')     # <arch>-<opt>/
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    bad = [r for r in recs if validate_record(r)]
+    require(not bad, f'{argv}: invalid records {bad[:2]}')
+    steps = [r for r in recs if r['event'] == 'step']
+    losses = [r['loss'] for r in steps]
+    require(losses == history, f'{argv}: step records {losses} against the '
+            f'returned history {history}')
+    torch.cuda.empty_cache()
+    return losses, [r['step_time_s'] * 1e3 for r in steps], path, counts, \
+        device
+
+
+def _cli_paths(torch, work):
+    """11a: each CLI run through the kernels beside its --kernel-impl torch
+    twin.  Returns the launch counts, the per-step counts and the info."""
+    from repro_torch.kernels import launches
+    from repro_torch.train import checkpoint as ckpt
+    counts = {k: 0 for k in launches.COUNTS}
+    per_step, info, profiled = {}, {}, None
+    for tag, (flags, want_step, traced) in CLI_RUNS.items():
+        n_steps = int(flags[flags.index('--steps') + 1])
+        t0 = time.perf_counter()
+        kl, kms, kpath, got, device = _cli_run(torch, flags, work / tag /
+                                               'kernel', trace=traced)
+        t1 = time.perf_counter()
+        pl, pms, ppath, twin, _ = _cli_run(
+            torch, flags + ['--kernel-impl', 'torch'], work / tag / 'plain',
+            trace=False)
+        t2 = time.perf_counter()
+        want = {k: want_step.get(k, 0) * n_steps for k in launches.COUNTS}
+        require(got == want, f'{tag}: launches {got} != {want}')
+        require(not any(twin.values()), f'{tag}: the twin launched {twin}')
+        want_dev = sum(DEVICE_LAUNCHES[k][0] * v for k, v in want.items())
+        require(not traced or want_dev * (1 - CLI_TRACE_SHORT) <= device
+                <= want_dev, f'{tag}: {device} port kernels in the trace, '
+                f'want {want_dev}')
+        require(len(kl) == len(pl) == n_steps and all(
+            math.isfinite(x) for x in kl + pl), f'{tag}: losses {kl} {pl}')
+        rel = max(abs(a - b) / abs(b) for a, b in zip(kl, pl))
+        require(rel <= TRAJ_RTOL, f'{tag}: kernel losses {kl} against the '
+                f'plain twin {pl}: {rel:.3e} > {TRAJ_RTOL}')
+        if '--ckpt-every' in flags:
+            for path in (kpath, ppath):
+                kept = ckpt.available_steps(path.parent / 'ckpt')
+                require(kept == [2, 4], f'{tag}: checkpoints {kept}')
+        if '--profile' in flags:
+            profiled = kpath
+        for k, v in got.items():
+            counts[k] += v
+        per_step[f'lm {tag}'] = dict(want_step)
+        info[tag] = {'losses_kernel': kl, 'losses_plain': pl,
+                     'max_rel_loss_diff': rel, 'step_ms_kernel': kms,
+                     'kernel_run_traced': traced,
+                     'step_ms_plain': pms, 'launches': got,
+                     'port_device_kernels_traced': device,
+                     'port_device_kernels_want': want_dev,
+                     'seconds_kernel': t1 - t0, 'seconds_plain': t2 - t1}
+        print(f'  {tag}: {n_steps} steps, loss {kl[0]:.4f} -> {kl[-1]:.4f}, '
+              f'within {rel:.2e} of the plain twin; launches {got}, '
+              + (f'{device} of {want_dev:.0f} port kernels in the trace; '
+                 if traced else 'not traced; ')
+              + f'step ms kernel {[round(x, 1) for x in kms]}, plain '
+              f'{[round(x, 1) for x in pms]}; {t1 - t0:.1f} s + '
+              f'{t2 - t1:.1f} s', flush=True)
+    return counts, per_step, info, profiled
+
+
+def _cli_processes(work, profiled):
+    """11b and 11c, as processes started together on the card: the report
+    on the profiled run's records (``--validate``, then the breakdown), the
+    CLI on demo_lm('small') and each example.  Each must exit 0; every
+    process still running when one fails or times out is killed.  Returns
+    each one's seconds and output."""
+    env = dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS='2')
+    report = 'scripts/obs_report_torch.py'
+    jobs = {'report validate': [report, '--validate', str(profiled)],
+            'report breakdown': [report, str(profiled)],
+            **CLI_SUBPROCESSES}
+    procs = {}
+    t0 = time.perf_counter()
+    seconds, out = {}, {}
+    try:
+        for tag, argv in jobs.items():
+            log = open(work / f'{tag.replace(" ", "_")}.log', 'w')
+            procs[tag] = (subprocess.Popen(
+                [sys.executable, *argv], cwd=ROOT, env=env, stdout=log,
+                stderr=subprocess.STDOUT), log)
+        for tag, (proc, log) in procs.items():
+            left = CLI_SUB_TIMEOUT - (time.perf_counter() - t0)
+            try:
+                rc = proc.wait(timeout=max(left, 1))
+            except subprocess.TimeoutExpired:
+                fail(f'{tag} still running after {CLI_SUB_TIMEOUT} s')
+            seconds[tag] = time.perf_counter() - t0
+            log.close()
+            out[tag] = Path(log.name).read_text()
+            require(rc == 0, f'{tag}: exit code {rc}: {out[tag][-2000:]}')
+    finally:
+        for proc, log in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    require('records OK' in out['report validate'], out['report validate'])
+    for piece in ('mean step time', 'precondition', 'profile @ step 3'):
+        require(piece in out['report breakdown'],
+                f'the breakdown lacks {piece!r}')
+    print('\n'.join('  | ' + line for line in
+                    out['report breakdown'].strip().splitlines()[:16]))
+    for tag in jobs:
+        last = [line for line in out[tag].splitlines() if line.strip()][-1:]
+        print(f'  {tag}: exit 0 after {seconds[tag]:.1f} s; '
+              f'{last[0][:120] if last else ""}', flush=True)
+    return seconds
+
+
+def cli_phase(torch, rows):
+    """Phase 11: the training CLI and the examples on the card; the
+    launches of 11a go into the kernel rows."""
+    import shutil
+    from repro_torch.launch import train as cli
+    phase('11 the CLI and the examples on the card: repro_torch.launch.'
+          'train on demo_lm(100m) at 16 x 512, the report, the examples')
+    t0 = time.perf_counter()
+    work = ROOT / 'build' / 'smoke_cli'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    try:
+        counts, per_step, info, profiled = _cli_paths(torch, work)
+        # the host cost of one of the CLI's batches, beside its step: the
+        # Prefetcher's thread makes each while the card runs a step
+        stream = cli.lm_stream(LM_STREAM['vocab'], LM_STREAM['seq_len'],
+                               LM_STREAM['batch'], 'cuda')
+        host_ms = []
+        for step in range(2):
+            tb = time.perf_counter()
+            stream.batch_at(step)
+            host_ms.append((time.perf_counter() - tb) * 1e3)
+        info['lmstream_batch_host_ms'] = host_ms
+        print(f'  LMStream.batch_at at 16 x 512, vocab 32768: host ms '
+              f'{[round(x, 1) for x in host_ms]}', flush=True)
+    finally:
+        cli.lm_stream.cache_clear()
+    t1 = time.perf_counter()
+    info['process_seconds'] = _cli_processes(work, profiled)
+    t2 = time.perf_counter()
+    _add_counts(rows, counts, per_step)
+    info['seconds'] = {'11a': t1 - t0, '11b_11c': t2 - t1, 'total': t2 - t0}
+    print(json.dumps({'cli_checks': info}))
+    print(f'  phase 11 took {t2 - t0:.1f} s (11a {t1 - t0:.1f} s, 11b and '
+          f'11c together {t2 - t1:.1f} s)', flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     if not (SRC / 'repro_torch' / 'kernels' / 'csrc').is_dir():
         fail(f'no src/repro_torch beside {Path(__file__).name}: run it from '
@@ -3682,6 +3921,7 @@ def main() -> None:
     rest_phases(torch, rows, corpus, bare_step_ms)
     families_phase(torch, rows)
     multi_worker_phase(torch, rows)
+    cli_phase(torch, rows)
     print(f'total {time.perf_counter() - t0:.1f} s after device check')
     print(json.dumps({'kernels': rows}))
     print(smi)

@@ -11,8 +11,9 @@ factor (a ring all-reduce moves about twice the payload).
 """
 from __future__ import annotations
 
+import contextlib
 import threading
-from typing import Any, Optional
+from typing import Any, Iterator, Optional
 
 _LOCK = threading.Lock()
 _SITES: dict[str, dict[str, Any]] = {}
@@ -43,6 +44,16 @@ def pop_scope(s: Scope) -> None:
     with _LOCK:
         if s in _SCOPES:
             _SCOPES.remove(s)
+
+
+@contextlib.contextmanager
+def scope() -> Iterator[Scope]:
+    """A run-scoped counter view for the life of the ``with`` block."""
+    s = push_scope()
+    try:
+        yield s
+    finally:
+        pop_scope(s)
 
 
 def record(site: str, *, bytes_per_call: int, codec: str, mode: str,

@@ -4,7 +4,7 @@
 ``ArchConfig`` carries every field of the reference, so a config moves
 between the two packages field for field; ``pdtype`` and ``cdtype`` are
 torch dtypes.  ``ShapeCell`` and ``SHAPES`` are the four assigned input
-shapes.
+shapes; ``cells_for`` pairs each with its skip reason.
 """
 from __future__ import annotations
 
@@ -114,3 +114,17 @@ SHAPES = (
 )
 
 SHAPE_BY_NAME = {s.name: s for s in SHAPES}
+
+
+def cell_skip_reason(arch: ArchConfig, shape: ShapeCell) -> Optional[str]:
+    """The skips the assignment sets; None = run the cell."""
+    if shape.name == 'long_500k' and not arch.sub_quadratic:
+        return ('full-attention arch: 524k context needs sub-quadratic '
+                'attention (run only for SSM/hybrid per spec)')
+    return None
+
+
+def cells_for(arch: ArchConfig):
+    """(shape, skip reason or None) for each of the four shapes."""
+    for shape in SHAPES:
+        yield shape, cell_skip_reason(arch, shape)

@@ -42,6 +42,18 @@ def _nu(kl: torch.Tensor, step, kappa: float, lr: Schedule) -> torch.Tensor:
     return torch.clamp(torch.sqrt(ratio), max=1.0)
 
 
+def kl_clip(kappa: float = 1e-3, lr: Schedule = 0.1) -> GradientTransformation:
+    """ν = min(1, √(κ / (α² Σ_l p_lᵀ g_l))); scales all updates by ν.
+    ``kl_clip_trace`` at momentum 0 is the same transform with a buffer."""
+
+    def update(updates, state, params=None, extras: Optional[Extras] = None):
+        del params
+        nu = _nu(tree_vdot(updates, extras.raw_grads), extras.step, kappa, lr)
+        return tree_map(lambda u: u * nu, updates), state
+
+    return GradientTransformation(_unit_init, update)
+
+
 def kl_clip_trace(kappa: float = 1e-3, lr: Schedule = 0.1,
                   momentum: float = 0.9,
                   nesterov: bool = False) -> GradientTransformation:

@@ -38,6 +38,18 @@ def eva_precondition(g, a, b, gamma: float, impl: str = 'auto'):
     return kops.eva_precondition(g, a, b, gamma, impl=impl)
 
 
+def eva_f_precondition(g, a, gamma: float, impl: str = 'auto'):
+    """Eq. 21, P = (G − ā (āᵀG)/(γ + ‖ā‖²))/γ.  g: (..., d_in, d_out); a:
+    (..., d_in)."""
+    return kops.eva_f_precondition(g, a, gamma, impl=impl)
+
+
+def eva_s_precondition(g, v_in, v_out, gamma: float, impl: str = 'auto'):
+    """Eva's rank-one form with the gradient's own (v_in, v_out) in place
+    of (ā, b̄)."""
+    return kops.eva_precondition(g, v_in, v_out, gamma, impl=impl)
+
+
 def grad_kvs(g):
     """Eva-s KVs (Eq. 23, k=2): v_in = mean of G over d_out, v_out = mean of
     G over d_in, in f32."""
@@ -118,7 +130,7 @@ def apply_two_sided(g, op_in, op_out):
     return ((op_in @ _f32(g)) @ op_out).to(g.dtype)
 
 
-def _per_item(fn, *args):
+def map_bucket(fn, *args):
     """``fn`` on each row of a stack, in order, stacked again: the
     reference's ``lax.map`` over a bucket, where a batched LAPACK call
     could change an item's rounding."""
@@ -133,7 +145,7 @@ def _precondition(method, g, st, gamma, impl, stacked=False):
     their factors (or, ``*_cached``, the cached operators) from a_outer /
     b_outer, FOOF its input factor (or cached inverse) from a_outer."""
     if method == 'eva_f':
-        return kops.eva_f_precondition(g, st.a_mean, gamma, impl=impl)
+        return eva_f_precondition(g, st.a_mean, gamma, impl=impl)
     if method in ('eva', 'eva_s'):
         return eva_precondition(g, st.a_mean, st.b_mean, gamma, impl=impl)
     if method == 'foof_cached':
@@ -142,12 +154,12 @@ def _precondition(method, g, st, gamma, impl, stacked=False):
         return apply_two_sided(g, st.a_outer, st.b_outer)
     if method == 'foof':
         if stacked:
-            return _per_item(lambda *t: foof_precondition(*t, gamma), g,
+            return map_bucket(lambda *t: foof_precondition(*t, gamma), g,
                              st.a_outer)
         return foof_precondition(g, st.a_outer, gamma)
     fn = kfac_precondition if method == 'kfac' else shampoo_precondition
     if stacked:
-        return _per_item(lambda *t: fn(*t, gamma), g, st.a_outer,
+        return map_bucket(lambda *t: fn(*t, gamma), g, st.a_outer,
                          st.b_outer)
     return fn(g, st.a_outer, st.b_outer, gamma)
 
@@ -280,3 +292,23 @@ def precondition_tree_fused(updates: dict, aux: dict, method: str,
         partials[p] = torch.stack([(o * g32).sum(), (o * o).sum(),
                                    (g32 * g32).sum()])
     return out, partials
+
+
+# ---------------------------------------------------------------------------
+# Reference dense form (tests only): build the full (C + γI)^{-1} g
+
+
+def eva_explicit(g, a, b, gamma: float):
+    """Literal (C+γI)^{-1} vec(G) with C = (b̄b̄ᵀ)⊗(āāᵀ) — O(d⁴), tests only.
+
+    vec() follows the paper: row-major flatten of the (d_out, d_in) weight;
+    with the (d_in, d_out) layout that is ``g.T.reshape(-1)`` and
+    ``C = kron(b̄b̄ᵀ, āāᵀ)``.  f32 at least (f64 stays f64).
+    """
+    d_in, d_out = g.shape[-2], g.shape[-1]
+    g32, a32, b32 = _f32(g), _f32(a), _f32(b)
+    vec = g32.transpose(-1, -2).reshape(d_out * d_in)
+    c = torch.kron(torch.outer(b32, b32), torch.outer(a32, a32))
+    eye = torch.eye(d_out * d_in, dtype=c.dtype, device=c.device)
+    p = torch.linalg.solve(c + gamma * eye, vec)
+    return p.reshape(d_out, d_in).transpose(-1, -2).to(g.dtype)

@@ -133,6 +133,16 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_scale(tree, s):
+    """Each leaf times ``s`` in f32, back in the leaf's dtype."""
+    return tree_map(lambda x: (x.to(F32) * s).to(x.dtype), tree)
+
+
+def tree_zeros_like(tree, dtype=None):
+    return tree_map(lambda x: torch.zeros(x.shape, dtype=dtype or x.dtype,
+                                          device=x.device), tree)
+
+
 def tree_device(tree) -> torch.device:
     """The device of the first tensor leaf."""
     return next(iter(tree_leaves_with_path(tree).values())).device
@@ -241,6 +251,14 @@ def ema_trace(momentum: float = 0.9,
     """Bias-corrected EMA momentum (see ``trace``)."""
     return trace(momentum, nesterov=nesterov, dampening=momentum,
                  bias_correction=True)
+
+
+def scale(factor) -> GradientTransformation:
+    return stateless(lambda u, p, e: tree_map(lambda x: x * factor, u))
+
+
+class ScheduleState(NamedTuple):
+    pass
 
 
 def scale_by_schedule(schedule: Callable, negate: bool = True

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Any, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -28,6 +28,17 @@ class ParamSpec:
     dtype: Any = torch.float32
     init: str = 'scaled'          # scaled | normal | zeros | ones
     scale: Optional[float] = None  # stddev override
+
+
+def is_spec(x) -> bool:
+    return isinstance(x, ParamSpec)
+
+
+def spec_tree_map(fn: Callable[[ParamSpec], Any], specs: Any) -> Any:
+    """Map over a nested dict of ParamSpec."""
+    if isinstance(specs, dict):
+        return {k: spec_tree_map(fn, v) for k, v in specs.items()}
+    return fn(specs)
 
 
 def flatten_specs(specs: Any, prefix: str = '') -> dict[str, Any]:

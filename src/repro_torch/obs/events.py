@@ -7,8 +7,9 @@ schema version ``v``; every other key is typed by ``SCHEMAS[event]`` and an
 unknown key is an error.  The schemas here are the reference's for the
 records ``Trainer.fit`` and ``Trainer.fit_elastic`` emit (``step``,
 ``refresh``, ``refresh_ownership``, ``reshard``, ``comm_exchange``,
-``straggler``, ``span`` and ``profile``), so a record the port writes passes
-the reference's validator.  The scheduler's, the pipeline's and the sharded
+``straggler``, ``span`` and ``profile``) and for the ``bench`` rows the
+report reads, so a record the port writes passes the reference's
+validator and the two validators refuse the same records.  The scheduler's, the pipeline's and the sharded
 factor's step fields come from their modules' ``METRIC_FIELDS``.  The
 ``Recorder`` owns a run-scoped view of the exchange byte counters
 (``comm/metrics.py``): the sites recorded while it is open belong to its
@@ -108,6 +109,13 @@ SCHEMAS: dict[str, dict[str, Field]] = {
         'device_bytes_in_use': Field(_INT, unit='bytes'),
         'fns': Field(_DICT, unit='fn -> cost summary'),
     },
+    # one BENCH_*.json row (the reference's benchmarks/common.write_json)
+    'bench': {
+        'name': Field(_STR, required=True),
+        'us_per_call': Field(_NUM, required=True, unit='us'),
+        'derived': Field(_STR),
+        'fields': Field(_DICT),
+    },
 }
 
 
@@ -120,6 +128,9 @@ _SITE_FIELDS = {
     'pods': Field((list, tuple), unit='(n_pods, pod_size)'),
     'ici_bytes': Field(_INT, unit='B'),
     'dcn_bytes': Field(_INT, unit='B'),
+    # sharded-factor apply sites (factor/*)
+    'solve_iters': Field(_INT, unit='iterations per solve'),
+    'factor_shard_bytes': Field(_INT, unit='B of factor band per worker'),
 }
 
 

@@ -1,4 +1,5 @@
-"""The port stands alone: no module of ``src/repro_torch`` nor
+"""The port stands alone: no module of ``src/repro_torch``, no
+``examples/*_torch.py``, ``scripts/obs_report_torch.py`` nor
 ``chip_smoke.py`` imports JAX or the reference package, and the entry points
 run on the card unless the caller asks for the CPU."""
 import ast
@@ -10,7 +11,8 @@ torch = pytest.importorskip('torch')
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / 'src' / 'repro_torch').rglob('*.py')) + \
-    [ROOT / 'chip_smoke.py']
+    sorted((ROOT / 'examples').glob('*_torch.py')) + \
+    [ROOT / 'scripts' / 'obs_report_torch.py', ROOT / 'chip_smoke.py']
 BANNED = ('jax', 'jaxlib', 'repro')
 
 
@@ -42,7 +44,10 @@ def test_port_files_found():
             'command_r_35b.py', 'llava_next_34b.py',
             'jamba_v0_1_52b.py', 'codec.py', 'metrics.py', 'group.py',
             'exchange.py', 'ownership.py', 'reshard.py', 'compression.py',
-            'workers.py', 'runtime.py'} <= names
+            'workers.py', 'runtime.py', 'report.py', 'train.py',
+            'obs_report_torch.py', 'quickstart_torch.py',
+            'train_lm_torch.py', 'autoencoder_eva_torch.py',
+            'optimizer_comparison_torch.py', 'serve_lm_torch.py'} <= names
 
 
 MULTI_WORKER_MODULES = ['repro_torch.comm.codec', 'repro_torch.comm.metrics',
@@ -104,6 +109,9 @@ def test_entry_points_default_to_the_card():
             build_model(get_reduced(arch)).init_cache(2, 8)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         serve('qwen2-0.5b', reduced=True)
+    from repro_torch.launch import train
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train.main(['--arch', 'demo', '--steps', '1'])
 
 
 def test_kernel_build_needs_nvcc(monkeypatch, tmp_path):

@@ -203,8 +203,8 @@ def test_mfac_f32_step_is_ill_conditioned_in_both_packages(monkeypatch):
     import importlib
 
     import jax.numpy as jnp
-    from repro_torch.core import mfac
-    # the module: repro.core re-exports the optimizer under the same name
+    # the modules: each package re-exports the optimizer under the same name
+    mfac = importlib.import_module('repro_torch.core.mfac')
     jmfac_mod = importlib.import_module('repro.core.mfac')
     rng = np.random.default_rng(0)
     g = {'fc0/w': (0.3 * rng.normal(size=(16, 32))).astype(np.float32),
@@ -235,8 +235,11 @@ def test_mfac_buffer_columns_follow_the_reference_leaf_order():
     """After one step the buffer's first row is the raw gradient laid out
     as the reference lays it out (nested dict keys sorted), and the rows
     not yet filled are zero; the old state's buffer is left as it was."""
-    from repro_torch.core import mfac
+    import importlib
+
     from repro_torch.core.transform import tree_leaves
+    # the module: repro_torch.core re-exports the optimizer under its name
+    mfac = importlib.import_module('repro_torch.core.mfac')
     grads = {'b/x': torch.arange(3.0), 'a-c': torch.ones(2),
              'a/w': torch.full((2, 2), 5.0)}
     # nested order: a/w (['a']['w']) before a-c, then b/x
