@@ -175,6 +175,36 @@ Phases; any failure stops the run with a non-zero exit:
               ``examples/*_torch.py`` at a few steps; 11b and 11c as
               processes started together, each exiting 0.  The launches
               of 11a go into the kernel rows.
+12. dispatch — the kernel dispatch and the tuner on the card.  12a: every
+              configuration the tuner or a cache can pick
+              (``dispatch.configurations``) against its plain version with
+              phase 3's limits, on demo_lm('100m')'s five weight shapes at
+              their stack depths (12, and 1 for the head): bilinear,
+              rank1_update and eva_fused (one each), matvec and eva_f_fused
+              at 1 to 8 warps, the same bits at every warps; matvec_cols'
+              two tiles on the head's 768 x 32768 x 32768 band and the
+              autoencoder's 784 and 500 x 1000 x 1000 bands, three deep, the
+              same bits under both; stacked against per item bit for bit
+              under each; a cache sending the head's band to 'torch', then
+              to tile 1, launches 0 and then 1 kernel a call under 'auto',
+              and choices_snapshot names each; the host µs a call of
+              rank1_update and matvec through the dispatch beside the
+              kernels' own wrappers (alternating rounds).  12b:
+              ``repro_torch.launch.train.main`` in this process with
+              ``--autotune`` (Eva composed, 2 steps, demo_lm('100m') at
+              16 x 512) beside its ``--kernel-impl torch`` twin: the
+              cache's 15 entries, each step record's kernel_tiles agreeing
+              with them, the launches a step the winners predict (exact in
+              the wrappers, and in a trace at most 1% short), each loss
+              within 1e-4 of the twin's.  12c: ``scripts/autotune_torch.py``
+              as a process, started with 12a and waited for after 12b:
+              exit 0, its file installs.  The launches of 12b's steps and
+              of its tuner go into the kernel rows.
+
+Phases 1-11 run under the shipped ``kernels/tile_defaults.json``.  Phase 2
+checks that it moves no kernel off its plan (it names only 'cuda', at the
+configuration the kernel runs with no entry), so the main path runs the
+configurations that phases 6 and 7 time.
 
 The line before the card line is ``{"kernels": [...]}``; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -417,7 +447,15 @@ def device_phase(torch):
 
 def build_phase():
     phase('2 build')
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, dispatch
+    shipped = dispatch._shipped_defaults()
+    for key, e in shipped.items():
+        _, op, _, shape = key.split('/')
+        plan = dispatch._default_blocks(op, *map(int, shape.split('x')))
+        require((e.get('block_in', plan[0]), e.get('block_out', plan[1]))
+                == plan, f'tile_defaults.json moves {key} off its plan '
+                f'{plan}: {e}')
+    print(f'tile_defaults.json: {len(shipped)} entries, none off its plan')
     secs = build.build_all()
     print(f'built {[s.name for s in build.sources()]} in {secs:.2f} s '
           f'into {build.build_dir()}')
@@ -909,8 +947,13 @@ def _path_kernels():
         'matvec': (matvec, '_launch',
                    lambda g, a, *_: ref.matvec_and_norm_ref(g, a)),
         'eva_fused': (fused, 'eva_fused_stacked', ref.eva_fused_ref),
-        'eva_f_fused': (fused, 'eva_f_fused_stacked', ref.eva_f_fused_ref),
-        'matvec_cols': (matvec, 'matvec_cols_stacked', ref.matvec_cols_ref),
+        # the dispatch hands eva_f_fused its warps and matvec_cols its tile
+        # as one more argument, which the plain versions do not take
+        'eva_f_fused': (fused, 'eva_f_fused_stacked',
+                        lambda g, a, gamma, m, mu, fold=True, *_:
+                        ref.eva_f_fused_ref(g, a, gamma, m, mu, fold)),
+        'matvec_cols': (matvec, 'matvec_cols_stacked',
+                        lambda g, a, *_: ref.matvec_cols_ref(g, a)),
     }
 
 
@@ -1392,26 +1435,37 @@ def _graph_ms(torch, fn, iters, warmup=5, repeats=3):
     return _time_ms(torch, graph.replay, iters, repeats, warmup=warmup)
 
 
-def _device_launches(torch, fn, calls, traces=3):
+def _device_launches(torch, fn, calls, traces=3, tries=9):
     """Device kernels per wrapper call in one run of ``fn`` (``calls``
     wrapper calls), from the profiler: (all of them, the port's own).
     A trace can lose a kernel's event (CUPTI dropped one of eight bilinear
     launches in one run on an H100), so a trace may count a launch short
     but never one over: each count is the largest of ``traces`` traced
-    runs, which still sees every launch too many."""
+    runs, which still sees every launch too many.  A trace that holds no
+    device event at all (CUPTI delivered none: seen once on an H100, three
+    traces in a row of a run whose kernels ran) is taken again, up to
+    ``tries`` traces in all; a run that launches nothing still counts 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    every, port = 0, 0
-    for _ in range(traces):
+    every, port, seen = 0, 0, 0
+    for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
                   if e.device_type == DeviceType.CUDA]
-        every = max(every, sum(e.count for e in events))
+        n = sum(e.count for e in events)
+        if n == 0:
+            print('  a trace held no device event; tracing again',
+                  flush=True)
+            continue
+        every = max(every, n)
         port = max(port, sum(e.count for e in events if 'repro::' in e.key))
+        seen += 1
+        if seen == traces:
+            break
     return every / calls, port / calls
 
 
@@ -2980,6 +3034,7 @@ def families_phase(torch, rows):
 # SOLVER_PATHS / REST_PATHS, fused, the sharded-factor config or None, the
 # kernels launched: {kernel: launches per step and rank})
 P10_WORLD = 4
+P10_THREADS = 2         # torch host threads of each rank
 P10_STEPS = 10
 P10_CMP_STEPS = 3       # steps of the gather-against-psum runs
 P10_PATHS = {
@@ -3696,9 +3751,10 @@ def multi_worker_phase(torch, rows):
     shutil.rmtree(root, ignore_errors=True)
     print(f'transport: gloo, {P10_WORLD} ranks on 1 card', flush=True)
     t1 = time.perf_counter()
+    # two host threads a rank: the four share the machine's eight cores
     results = workers.spawn(_p10_rank, P10_WORLD, args=(str(root),),
                             backend='gloo', device='cuda',
-                            timeout=P10_TIMEOUT)
+                            timeout=P10_TIMEOUT, threads=P10_THREADS)
     spawn_s = time.perf_counter() - t1
     c2, p2, i2 = _p10_check(torch, results, root)
     shutil.rmtree(root, ignore_errors=True)
@@ -3870,22 +3926,19 @@ def cli_phase(torch, rows):
     work = ROOT / 'build' / 'smoke_cli'
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
-    try:
-        counts, per_step, info, profiled = _cli_paths(torch, work)
-        # the host cost of one of the CLI's batches, beside its step: the
-        # Prefetcher's thread makes each while the card runs a step
-        stream = cli.lm_stream(LM_STREAM['vocab'], LM_STREAM['seq_len'],
-                               LM_STREAM['batch'], 'cuda')
-        host_ms = []
-        for step in range(2):
-            tb = time.perf_counter()
-            stream.batch_at(step)
-            host_ms.append((time.perf_counter() - tb) * 1e3)
-        info['lmstream_batch_host_ms'] = host_ms
-        print(f'  LMStream.batch_at at 16 x 512, vocab 32768: host ms '
-              f'{[round(x, 1) for x in host_ms]}', flush=True)
-    finally:
-        cli.lm_stream.cache_clear()
+    counts, per_step, info, profiled = _cli_paths(torch, work)
+    # the host cost of one of the CLI's batches, beside its step: the
+    # Prefetcher's thread makes each while the card runs a step
+    stream = cli.lm_stream(LM_STREAM['vocab'], LM_STREAM['seq_len'],
+                           LM_STREAM['batch'], 'cuda')
+    host_ms = []
+    for step in range(2):
+        tb = time.perf_counter()
+        stream.batch_at(step)
+        host_ms.append((time.perf_counter() - tb) * 1e3)
+    info['lmstream_batch_host_ms'] = host_ms
+    print(f'  LMStream.batch_at at 16 x 512, vocab 32768: host ms '
+          f'{[round(x, 1) for x in host_ms]}', flush=True)
     t1 = time.perf_counter()
     info['process_seconds'] = _cli_processes(work, profiled)
     t2 = time.perf_counter()
@@ -3894,6 +3947,435 @@ def cli_phase(torch, rows):
     print(json.dumps({'cli_checks': info}))
     print(f'  phase 11 took {t2 - t0:.1f} s (11a {t1 - t0:.1f} s, 11b and '
           f'11c together {t2 - t1:.1f} s)', flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
+# ---------------------------------------------------------------------------
+# 12. the kernel dispatch and the tuner on the card
+
+# 12a: demo-100m's five weight shapes, each at its stack depth (12 for the
+# blocks' weights, 1 for the head), and matvec_cols' bands (L, R, m, n): the
+# head's 32768-wide side against R = 768 vectors, and the autoencoder's
+# 1000-wide sides against R = 784 and 500, three deep (phase 5's bucket).
+# The cache entry that routes the head's band is keyed on g's (m, n).
+P12_SHAPES = ((12, 768, 768), (12, 768, 256), (12, 768, 2048),
+              (12, 2048, 768), (1, 768, 32768))
+P12_COLS = ((1, 768, 32768, 32768), (3, 784, 1000, 1000),
+            (3, 500, 1000, 1000))
+# 12b: the CLI with --autotune (Eva composed: bilinear and rank1_update,
+# one call a weight) beside its --kernel-impl torch twin; the tuner's OPS
+# on the five shapes make the cache's entries
+P12_CLI = ['--opt', 'eva', '--steps', '2']
+P12_OPS = ('bilinear', 'matvec', 'rank1_update')
+# 12c: the script as a process
+P12_SCRIPT = ['scripts/autotune_torch.py', '--shapes', '768x2048,2048x768']
+P12_SCRIPT_TIMEOUT = 300
+# phase 6's host µs a call of the kernels' own wrappers on an H100 80GB
+# HBM3 at 700 W before the dispatch resolved configurations, beside which
+# the dispatch wrappers' are printed
+HOST_US_BEFORE = {'rank1_update': 19.1, 'matvec': 18.2}
+P12_HOST_ROUNDS = 7
+
+
+def _p12_same(torch, a, b, what):
+    require(all(torch.equal(x, y) for x, y in zip(a, b)), what)
+
+
+def _p12_kernel_configs(torch):
+    """12a, rows 1-8: each configuration that ``dispatch.configurations``
+    offers (the tuner's candidates, what a cache may name) against its plain
+    version with phase 3's limits, stacked against per item bit for bit;
+    matvec's and eva_f_fused's warps give the same bits as each other (their
+    chunk order does not depend on the warps).  Returns the worst error of
+    each kernel as a share of its limit."""
+    from repro_torch.kernels import bilinear as bil
+    from repro_torch.kernels import dispatch, fused, ref
+    from repro_torch.kernels import matvec as mv
+    from repro_torch.kernels import rank1_update as r1
+    tol = TOL['float32']
+    worst = collections.defaultdict(float)
+
+    def held(name, e, lim):
+        share = (e / torch.where(lim > 0, lim, 1.0)).max().item()
+        require(share <= 1.0, f'12a {name}: err {share:.3e} of its limit')
+        worst[name] = max(worst[name], share)
+
+    for seed, shape in enumerate(P12_SHAPES):
+        L, d_in, d_out = shape
+        g, a, b, m = _inputs(torch, shape, torch.float32, 300 + seed)
+        tag = 'x'.join(map(str, shape))
+        items = range(L) if L > 1 else ()
+        n_cfg = {op: len(dispatch.configurations(op, d_in, d_out))
+                 for op in dispatch.KERNEL_OPS}
+        require(n_cfg['bilinear'] == n_cfg['rank1_update'] ==
+                n_cfg['eva_fused'] == 1 and n_cfg['matvec'] ==
+                n_cfg['eva_f_fused'] == mv.MV_WARPS, f'12a {tag}: {n_cfg}')
+        dot, sq = bil.bilinear_and_norms_stacked(g, a, b)
+        want, sq_want = ref.bilinear_and_norms_ref(g, a, b)
+        held('bilinear', (dot - want).abs(),
+             tol * ref.bilinear_ref(g.abs(), a.abs(), b.abs()))
+        require(torch.allclose(sq, sq_want, rtol=1e-5, atol=0),
+                f'12a bilinear norms {tag}')
+        cs = _cs(torch, g, a, b, want)
+        p = r1.rank1_update_stacked(g, a, b, cs)
+        require(torch.equal(p, ref.rank1_update_ref(g, a, b, cs[:, 0],
+                                                    cs[:, 1])),
+                f'12a rank1_update {tag}: not the plain version\'s bits')
+        out, aux = fused.eva_fused_stacked(g, a, b, GAMMA, m, MU, True)
+        o_want, a_want = ref.eva_fused_ref(g, a, b, GAMMA, m, MU, True)
+        held('eva_fused', (GAMMA * out - GAMMA * o_want).abs(),
+             FUSED_TOL + FUSED_TOL * (GAMMA * o_want).abs())
+        require(bool(((aux - a_want).abs() <= 1e-4 + 2e-5 *
+                      a_want.abs()).all()), f'12a eva_fused aux {tag}')
+        for i in items:
+            sl = slice(i, i + 1)
+            _p12_same(torch, bil.bilinear_and_norms_stacked(
+                g[sl], a[sl], b[sl]), (dot[sl], sq[sl]),
+                f'12a bilinear stacked != item {i} {tag}')
+            _p12_same(torch, (r1.rank1_update_stacked(
+                g[sl], a[sl], b[sl], cs[sl]),), (p[sl],),
+                f'12a rank1_update stacked != item {i} {tag}')
+            _p12_same(torch, fused.eva_fused_stacked(
+                g[sl], a[sl], b[sl], GAMMA, m[sl], MU, True),
+                (out[sl], aux[sl]), f'12a eva_fused stacked != item {i} '
+                f'{tag}')
+        u_want = ref.matvec_ref(g, a)
+        col_scale = ref.matvec_ref(g.abs(), a.abs())
+        f_want, fa_want = ref.eva_f_fused_ref(g, a, GAMMA, m, MU, True)
+        first = None
+        for warps in range(1, mv.MV_WARPS + 1):
+            u, asq = mv.matvec_and_norm_stacked(g, a, warps)
+            held('matvec', (u - u_want).abs(), MATVEC_TOL * col_scale)
+            require(torch.allclose(asq, (a * a).sum(-1), rtol=1e-5, atol=0),
+                    f'12a matvec norm {tag} warps {warps}')
+            fo, fa = fused.eva_f_fused_stacked(g, a, GAMMA, m, MU, True,
+                                               warps=warps)
+            held('eva_f_fused', (GAMMA * fo - GAMMA * f_want).abs(),
+                 FUSED_TOL + FUSED_TOL * (GAMMA * f_want).abs())
+            require(bool(((fa - fa_want).abs() <= 1e-4 + 2e-5 *
+                          fa_want.abs()).all()),
+                    f'12a eva_f_fused aux {tag} warps {warps}')
+            for i in items:
+                sl = slice(i, i + 1)
+                _p12_same(torch, mv.matvec_and_norm_stacked(
+                    g[sl], a[sl], warps), (u[sl], asq[sl]),
+                    f'12a matvec stacked != item {i} {tag} warps {warps}')
+                _p12_same(torch, fused.eva_f_fused_stacked(
+                    g[sl], a[sl], GAMMA, m[sl], MU, True, warps=warps),
+                    (fo[sl], fa[sl]), f'12a eva_f_fused stacked != item {i}'
+                    f' {tag} warps {warps}')
+            if first is None:
+                first = (u, asq, fo, fa)
+            _p12_same(torch, (u, asq, fo, fa), first,
+                      f'12a {tag}: warps {warps} != warps 1')
+        print(f'  ok {tag}: bilinear, rank1_update, eva_fused (one '
+              f'configuration each), matvec and eva_f_fused at warps 1-'
+              f'{mv.MV_WARPS}, the same bits at every warps', flush=True)
+        del g, a, b, m, p, out, fo
+        torch.cuda.empty_cache()
+    return dict(worst)
+
+
+def _p12_cols(torch):
+    """12a, rows 9-10: both tiles of ``COLS_TILES`` on each band of
+    P12_COLS against the plain version (COLS_TOL of each output's scale),
+    stacked against per item, and the two tiles' bits equal.  Then a cache
+    that sends the head's band to 'torch', and one that sends it to
+    config 1: under 'auto' the dispatch launches 0 and then 1 kernel a
+    call, and ``choices_snapshot`` names each choice.  Returns the worst
+    error as a share of its limit and the snapshots."""
+    from repro_torch.kernels import dispatch, launches, ref
+    from repro_torch.kernels import matvec as mv
+    worst, snaps = 0.0, {}
+    for seed, (L, r, m_, n) in enumerate(P12_COLS):
+        gen = torch.Generator(device='cuda').manual_seed(400 + seed)
+        g = torch.randn((L, m_, n), generator=gen, device='cuda')
+        a = torch.randn((L, r, m_), generator=gen, device='cuda')
+        tag = f'12a matvec_cols {L}x{r}x{m_}x{n}'
+        want = ref.matvec_cols_ref(g, a)
+        lim = COLS_TOL * ref.matvec_cols_ref(g.abs(), a.abs())
+        first = None
+        for cfg in range(len(mv.COLS_TILES)):
+            u = mv.matvec_cols_stacked(g, a, cfg)
+            share = ((u - want).abs() / torch.where(lim > 0, lim, 1.0)
+                     ).max().item()
+            require(share <= 1.0, f'{tag} config {cfg}: err {share:.3e} of '
+                    f'its limit')
+            worst = max(worst, share)
+            for i in range(L if L > 1 else 0):
+                require(torch.equal(mv.matvec_cols(g[i], a[i], cfg), u[i]),
+                        f'{tag} config {cfg}: stacked != item {i}')
+            first = u if first is None else first
+            require(torch.equal(u, first), f'{tag}: config {cfg} != 0')
+        del lim, want
+        if L == 1:      # the head's band: routed by an installed cache
+            key = dispatch.cache_key('matvec_cols', m_, n, torch.float32,
+                                     'cuda')
+            for entry in ({'impl': 'torch'},
+                          {'impl': 'cuda', 'block_in': 56, 'block_out': 112}):
+                dispatch.install_cache({key: entry})
+                launches.reset()
+                got = dispatch.matvec_cols(g[0], a[0])
+                torch.cuda.synchronize()
+                n_launch = launches.snapshot()['matvec_cols']
+                snap = dispatch.choices_snapshot()['matvec_cols']
+                require(n_launch == (entry['impl'] == 'cuda'),
+                        f'{tag} under {entry}: {n_launch} launches')
+                require(snap.startswith(entry['impl']) and
+                        snap.endswith(f'@ {m_}x{n}') and
+                        ('56x112' in snap) == (entry['impl'] == 'cuda'),
+                        f'{tag} under {entry}: choice {snap!r}')
+                e = (got - first[0]).abs().max().item()
+                require(e == 0.0 if entry['impl'] == 'cuda' else
+                        bool(((got - first[0]).abs() <= COLS_TOL *
+                              ref.matvec_cols_ref(g[0].abs(), a[0].abs())
+                              ).all()), f'{tag} under {entry}: err {e:.3e}')
+                snaps[entry['impl']] = snap
+                print(f'  ok {tag}: cache {entry} -> {n_launch} launch, '
+                      f'choice {snap!r}', flush=True)
+            dispatch.reset_cache()
+        print(f'  ok {tag}: tiles {len(mv.COLS_TILES)} within '
+              f'{worst:.2e} of their limit, the same bits', flush=True)
+        del g, a, first, u
+        torch.cuda.empty_cache()
+    launches.reset()
+    return worst, snaps
+
+
+def _p12_host_us(torch):
+    """Host µs a call of rank1_update and matvec on the autoencoder's
+    layers, through the dispatch (its resolution memoized) and through the
+    kernels' own wrappers, as phase 6 times them."""
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels import matvec as mv
+    from repro_torch.kernels import rank1_update as r1
+    layers = _layer_inputs(torch, AE_SHAPES, 100)
+    fns = {
+        'rank1_update': (
+            lambda: [dispatch.rank1_update(g, a, b, c, s)
+                     for g, a, b, m, c, s, _ in layers],
+            lambda: [r1.rank1_update(g, a, b, c, s)
+                     for g, a, b, m, c, s, _ in layers]),
+        'matvec': (
+            lambda: [dispatch.matvec_and_norm(g, a) for g, a, *_ in layers],
+            lambda: [mv.matvec_and_norm(g, a) for g, a, *_ in layers]),
+    }
+    out = {}
+    reps = 160 // len(layers)
+    for name, (via, own) in fns.items():
+        # alternating rounds, each side's median: the host's own noise
+        # moves single readings by up to 2x
+        rounds = [(_host_us(torch, via, reps, len(layers)),
+                   _host_us(torch, own, reps, len(layers)))
+                  for _ in range(P12_HOST_ROUNDS)]
+        out[name] = {
+            'dispatch': statistics.median(r[0] for r in rounds),
+            'wrapper': statistics.median(r[1] for r in rounds),
+            'rounds': rounds, 'wrapper_before': HOST_US_BEFORE[name]}
+        print(f'  host µs a call of {name}, median of {P12_HOST_ROUNDS} '
+              f'rounds: through the dispatch {out[name]["dispatch"]:.1f}, '
+              f'the kernel\'s own wrapper {out[name]["wrapper"]:.1f} '
+              f'(before the dispatch, phase 6: {HOST_US_BEFORE[name]})',
+              flush=True)
+    return out
+
+
+def _p12_parse(choice: str):
+    """'cuda 1x2048 @ 768x2048' -> ('cuda', (1, 2048), (768, 2048))."""
+    impl, blocks, _, shape = choice.split()
+    return (impl, tuple(int(x) for x in blocks.split('x')),
+            tuple(int(x) for x in shape.split('x')))
+
+
+def _p12_cli(torch, work):
+    """12b: the CLI with --autotune on demo-100m beside its --kernel-impl
+    torch twin.  Returns the wrapper launches of the training steps and of
+    the tuner, the per-step counts and the info."""
+    from repro_torch.core import bucketing
+    from repro_torch.kernels import autotune, dispatch, launches
+    from repro_torch.launch import train as cli
+    from repro_torch.models import module as M
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = cli.arch_config(cli.build_parser().parse_args(CLI_BASE))
+    model = cli.build_model(cfg)
+    flat = M.flatten_specs(model.param_specs())
+    plan = bucketing.build_plan({p: torch.empty(flat[p].shape, device='meta')
+                                 for p in sorted(model.precon_paths())})
+    calls = collections.Counter()       # trailing shape -> calls a step
+    for bucket in plan.buckets:
+        calls[tuple(bucket.shape[-2:])] += 1 if bucket.stacked else \
+            len(bucket.paths)
+    require(sum(calls.values()) == LM_WEIGHTS, f'12b: calls {calls}')
+    tuned, prof = {}, profile(activities=[ProfilerActivity.CUDA])
+    real_tune = autotune.tune
+
+    def tune(*args, **kw):
+        """The tuner's launches apart; the trace covers the training."""
+        before = launches.snapshot()
+        t0 = time.perf_counter()
+        cache = real_tune(*args, **kw)
+        tuned['seconds'] = time.perf_counter() - t0
+        tuned['launches'] = {k: v - before[k]
+                             for k, v in launches.snapshot().items()}
+        torch.cuda.synchronize()
+        launches.reset()
+        prof.__enter__()
+        return cache
+    n_steps = int(P12_CLI[P12_CLI.index('--steps') + 1])
+    argv = CLI_BASE + P12_CLI + ['--autotune', '--out-dir', str(work / 'k')]
+    autotune.tune = tune
+    try:
+        launches.reset()
+        t0 = time.perf_counter()
+        history = cli.main(argv)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        autotune.tune = real_tune
+        if 'launches' in tuned:
+            prof.__exit__(None, None, None)
+    got = launches.snapshot()
+    device = sum(e.count for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA and 'repro::' in e.key)
+    dispatch.reset_cache()
+    twin = cli.main(CLI_BASE + P12_CLI + ['--kernel-impl', 'torch',
+                                          '--out-dir', str(work / 'p')])
+    t2 = time.perf_counter()
+    cache_path, = (work / 'k').glob('*/tile_cache.json')
+    entries = json.loads(cache_path.read_text())['entries']
+    want_keys = {dispatch.cache_key(op, d_in, d_out, torch.float32, 'cuda')
+                 for op in P12_OPS for d_in, d_out in calls}
+    require(len(entries) == len(want_keys) and set(entries) == want_keys,
+            f'12b: cache keys {sorted(entries)}')
+    for key, e in sorted(entries.items()):
+        print(f'  {key}: {e["impl"]} {e["block_in"]}x{e["block_out"]}, '
+              f'{e["us"]} µs', flush=True)
+    # the launches a step the winners predict: a call per weight whose
+    # shape's winner is 'cuda'
+    want_step = {op: sum(c for (d_in, d_out), c in calls.items()
+                         if entries[dispatch.cache_key(
+                             op, d_in, d_out, torch.float32, 'cuda')]['impl']
+                         == 'cuda')
+                 for op in ('bilinear', 'rank1_update')}
+    want = {k: want_step.get(k, 0) * n_steps for k in got}
+    require(got == want, f'12b: launches {got} != {want}')
+    want_dev = sum(DEVICE_LAUNCHES[k][0] * v for k, v in want.items())
+    require(want_dev * (1 - CLI_TRACE_SHORT) <= device <= want_dev,
+            f'12b: {device} port kernels in the trace, want {want_dev}')
+    path, = (work / 'k').glob('*/metrics.jsonl')
+    recs = [json.loads(line) for line in path.read_text().splitlines()]
+    steps = [r for r in recs if r['event'] == 'step']
+    losses = [r['loss'] for r in steps]
+    require(losses == history and len(losses) == n_steps, f'12b: {losses}')
+    for r in steps:
+        tiles = r.get('kernel_tiles', {})
+        require(r.get('kernel_impl') == 'auto' and
+                set(tiles) == {'bilinear', 'rank1_update'},
+                f'12b: step record {r}')
+        for op, choice in tiles.items():
+            impl, blocks, shape = _p12_parse(choice)
+            e = entries[dispatch.cache_key(op, *shape, torch.float32, 'cuda')]
+            require((impl, blocks) == (e['impl'], (e['block_in'],
+                                                   e['block_out'])),
+                    f'12b: step {r["step"]} {op} {choice!r} against {e}')
+    rel = max(abs(x - y) / abs(y) for x, y in zip(history, twin))
+    require(rel <= TRAJ_RTOL and all(math.isfinite(x) for x in history),
+            f'12b: losses {history} against the twin {twin}: {rel:.3e}')
+    print(f'  12b: {n_steps} steps, loss {history[0]:.4f} -> '
+          f'{history[-1]:.4f}, within {rel:.2e} of the plain twin; '
+          f'launches {got}, {device} of {want_dev:.0f} port kernels in the '
+          f'trace; the tuner {tuned["seconds"]:.1f} s, launches '
+          f'{tuned["launches"]}; {t1 - t0:.1f} s + {t2 - t1:.1f} s',
+          flush=True)
+    info = {'entries': entries, 'calls_a_step': {
+        f'{d_in}x{d_out}': c for (d_in, d_out), c in calls.items()},
+        'launches': got, 'tuner_launches': tuned['launches'],
+        'tuner_seconds': tuned['seconds'],
+        'port_device_kernels_traced': device,
+        'port_device_kernels_want': want_dev, 'losses_kernel': history,
+        'losses_plain': twin, 'max_rel_loss_diff': rel,
+        'step_ms_kernel': [r['step_time_s'] * 1e3 for r in steps],
+        'kernel_tiles': [r['kernel_tiles'] for r in steps],
+        'seconds_kernel': t1 - t0, 'seconds_plain': t2 - t1}
+    return got, tuned['launches'], {'lm cli eva autotune': want_step}, info
+
+
+def _p12_script(work):
+    """12c: ``scripts/autotune_torch.py`` as a process, started at the
+    beginning of phase 12 and waited for at its end; it exits 0 and its
+    file installs.  Returns the process and the function that waits."""
+    out = work / 'script_cache.json'
+    log = open(work / 'script.log', 'w')
+    proc = subprocess.Popen(
+        [sys.executable, *P12_SCRIPT, '--out', str(out)], cwd=ROOT,
+        env=dict(os.environ, PYTHONPATH=str(SRC), OMP_NUM_THREADS='2'),
+        stdout=log, stderr=subprocess.STDOUT)
+    t0 = time.perf_counter()
+
+    def finish():
+        from repro_torch.kernels import dispatch
+        try:
+            rc = proc.wait(timeout=P12_SCRIPT_TIMEOUT)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            fail(f'{P12_SCRIPT} still running after {P12_SCRIPT_TIMEOUT} s')
+        finally:
+            log.close()
+        text = Path(log.name).read_text()
+        require(rc == 0, f'{P12_SCRIPT}: exit code {rc}: {text[-2000:]}')
+        n = dispatch.install_cache(out)
+        entries = json.loads(out.read_text())['entries']
+        dispatch.reset_cache()
+        require(len(entries) == 6 and n >= len(entries),
+                f'12c: {len(entries)} entries, {n} installed')
+        print(f'  12c: {" ".join(P12_SCRIPT)} exit 0 after '
+              f'{time.perf_counter() - t0:.1f} s; {len(entries)} entries '
+              f'installed: ' + ', '.join(f'{k.split("/", 1)[1]} {e["impl"]}'
+                                         for k, e in sorted(entries.items())),
+              flush=True)
+        return {'seconds': time.perf_counter() - t0, 'entries': entries}
+    return proc, finish
+
+
+def dispatch_phase(torch, rows):
+    """Phase 12: the kernel dispatch and the tuner on the card; the
+    launches of 12b's training steps and of its tuner go into the kernel
+    rows."""
+    import shutil
+    from repro_torch.kernels import dispatch
+    from repro_torch.launch import train as cli
+    phase('12 dispatch and autotune on the card: every configuration, the '
+          'CLI with --autotune on demo_lm(100m), the script')
+    t0 = time.perf_counter()
+    work = ROOT / 'build' / 'smoke_dispatch'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    dispatch.reset_cache()
+    proc, script_done = _p12_script(work)
+    try:
+        info = {'worst_share': _p12_kernel_configs(torch)}
+        info['worst_share']['matvec_cols'], info['cache_routing'] = \
+            _p12_cols(torch)
+        info['host_us'] = _p12_host_us(torch)
+        t1 = time.perf_counter()
+        got, tuner, per_step, info['cli'] = _p12_cli(torch, work)
+        t2 = time.perf_counter()
+        info['script'] = script_done()
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        cli.lm_stream.cache_clear()
+        dispatch.reset_cache()
+    t3 = time.perf_counter()
+    _add_counts(rows, {k: got[k] + tuner[k] for k in got}, per_step)
+    info['seconds'] = {'12a': t1 - t0, '12b': t2 - t1, '12c_wait': t3 - t2,
+                       'total': t3 - t0}
+    print(json.dumps({'dispatch_checks': info}))
+    print(f'  phase 12 took {t3 - t0:.1f} s (12a {t1 - t0:.1f} s, 12b '
+          f'{t2 - t1:.1f} s, 12c {t3 - t2:.1f} s more)', flush=True)
     shutil.rmtree(work, ignore_errors=True)
 
 
@@ -3922,6 +4404,7 @@ def main() -> None:
     families_phase(torch, rows)
     multi_worker_phase(torch, rows)
     cli_phase(torch, rows)
+    dispatch_phase(torch, rows)
     print(f'total {time.perf_counter() - t0:.1f} s after device check')
     print(json.dumps({'kernels': rows}))
     print(smi)

@@ -5,7 +5,9 @@ transform (EMA'd KVs + Sherman–Morrison update, Eq. 13-15);
 ``eva_fused_update`` fuses it with the KL trust region and heavy-ball
 momentum; ``eva`` is the paper's optimizer.  Preconditioning is bucketed
 (``core/bucketing``) and the KV running stats live bucket-stacked in state.
-The kernel impl defaults to ``'auto'``: the Hopper kernels for CUDA tensors.
+The kernel impl defaults to the process default (``kernels/dispatch.py``,
+``'auto'``: the Hopper kernels for CUDA tensors); a ``KernelConfig`` in
+``Extras.kernel`` wins over it.
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from repro_torch.core.transform import (Extras, GradientTransformation,
                                         add_decayed_weights, chain, ema_trace,
                                         scale_by_schedule, tree_device,
                                         tree_map, tree_vdot)
+from repro_torch.kernels import dispatch
 from repro_torch.schedule import pipeline as pipemod
 from repro_torch.schedule import policy as schedpol
 from repro_torch.schedule import runtime as schedrt
@@ -119,7 +122,7 @@ def _kv_step(state, updates, extras, *, fields, site, policy, interval,
 def eva_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,
                        interval: int = 1,
                        policy: Optional[schedpol.RefreshPolicy] = None,
-                       impl: str = 'auto') -> GradientTransformation:
+                       impl: Optional[str] = None) -> GradientTransformation:
     """Bucketed P = (G − (b̄ᵀGā)/(γ+‖ā‖²‖b̄‖²)·āb̄ᵀ)/γ with EMA'd KVs."""
     fields = ('a_mean', 'b_mean')
 
@@ -132,8 +135,9 @@ def eva_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,
         flat, plan, used, parts = _kv_step(
             state, updates, extras, fields=fields, site='stats/eva',
             policy=policy, interval=interval, kv_decay=kv_decay)
+        k_impl = dispatch.impl_from_extras(extras, impl)
         out = pre.precondition_tree(flat, used, 'eva', gamma, plan=plan,
-                                    impl=impl)
+                                    impl=k_impl)
         return out, EvaState(**parts)
 
     return GradientTransformation(init, update)
@@ -141,7 +145,7 @@ def eva_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,
 
 def eva_fused_update(lr=0.1, gamma: float = 0.03, kv_decay: float = 0.95,
                      kl_kappa: float = 1e-3, momentum: float = 0.9,
-                     fold_kl: bool = True, impl: str = 'auto',
+                     fold_kl: bool = True, impl: Optional[str] = None,
                      interval: int = 1,
                      policy: Optional[schedpol.RefreshPolicy] = None
                      ) -> GradientTransformation:
@@ -162,10 +166,11 @@ def eva_fused_update(lr=0.1, gamma: float = 0.03, kv_decay: float = 0.95,
         flat, plan, used, parts = _kv_step(
             state, updates, extras, fields=fields, site='stats/eva',
             policy=policy, interval=interval, kv_decay=kv_decay)
+        k_impl = dispatch.impl_from_extras(extras, impl)
         u, partials = pre.precondition_tree_fused(
             flat, used, 'eva', gamma, plan=plan,
             trace=kvlib.flatten_params(state.trace), momentum=momentum,
-            fold_momentum=True, impl=impl)
+            fold_momentum=True, impl=k_impl)
         if fold_kl:
             kl = sum(partials[p][0] for p in sorted(partials))
         else:
@@ -180,12 +185,13 @@ def eva(lr=0.1, gamma: float = 0.03, kv_decay: float = 0.95,
         kl_kappa: Optional[float] = 1e-3, momentum: float = 0.9,
         weight_decay: float = 0.0, nesterov: bool = False, interval: int = 1,
         policy: Optional[schedpol.RefreshPolicy] = None, fused: bool = False,
-        kernel_impl: str = 'auto') -> GradientTransformation:
+        kernel_impl: Optional[str] = None) -> GradientTransformation:
     """The full Eva optimizer as evaluated in the paper (§5).
 
     ``fused=True`` runs preconditioner + KL clip + momentum as one kernel
     call per bucket (``eva_fused_update``); nesterov or ``kl_kappa=None``
-    keep the composed chain.  ``kernel_impl``: 'auto' | 'cuda' | 'torch'.
+    keep the composed chain.  ``kernel_impl``: 'auto' | 'cuda' | 'torch', or
+    None for the process default; ``Extras.kernel`` overrides it per step.
     """
     parts = []
     if weight_decay:

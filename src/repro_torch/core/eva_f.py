@@ -8,8 +8,8 @@ snapshot refresh through ``schedule``.  Only ā is captured: no taps.
 ``eva_f(fused=True)`` runs the preconditioner as one ``eva_f_fused`` call per
 bucket, whose aux partials give the ⟨p, g⟩ that the normalizer needs.  The
 normalize + EMA tail stays outside the kernel: its scale depends on every
-bucket.  The kernel impl defaults to ``'auto'``: the Hopper kernels for CUDA
-tensors.
+bucket.  The kernel impl defaults to the process default (``'auto'``: the
+Hopper kernels for CUDA tensors); ``Extras.kernel`` overrides it per step.
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ from repro_torch.core.eva import _kv_init, _kv_step, _zeros_like_spec
 from repro_torch.core.transform import (Extras, GradientTransformation,
                                         add_decayed_weights, chain, ema_trace,
                                         scale_by_schedule, tree_vdot)
+from repro_torch.kernels import dispatch
 from repro_torch.schedule import policy as schedpol
 
 
@@ -39,7 +40,7 @@ _FIELDS = ('a_mean',)
 def eva_f_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,
                          interval: int = 1,
                          policy: Optional[schedpol.RefreshPolicy] = None,
-                         impl: str = 'auto') -> GradientTransformation:
+                         impl: Optional[str] = None) -> GradientTransformation:
     """Bucketed P = (G − ā (āᵀG)/(γ + ‖ā‖²))/γ with EMA'd ā."""
 
     def init(params, extras: Optional[Extras] = None):
@@ -52,8 +53,9 @@ def eva_f_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,
         flat, plan, used, parts = _kv_step(
             state, updates, extras, fields=_FIELDS, site='stats/eva_f',
             policy=policy, interval=interval, kv_decay=kv_decay)
+        k_impl = dispatch.impl_from_extras(extras, impl)
         out = pre.precondition_tree(flat, used, 'eva_f', gamma, plan=plan,
-                                    impl=impl)
+                                    impl=k_impl)
         return out, EvaFState(**parts)
 
     return GradientTransformation(init, update)
@@ -61,7 +63,7 @@ def eva_f_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,
 
 def eva_f_fused_update(gamma: float = 0.03, kv_decay: float = 0.95,
                        momentum: float = 0.9, fold_kl: bool = True,
-                       impl: str = 'auto', interval: int = 1,
+                       impl: Optional[str] = None, interval: int = 1,
                        policy: Optional[schedpol.RefreshPolicy] = None
                        ) -> GradientTransformation:
     """Preconditioner + KL normalize + EMA momentum as one transform.
@@ -84,9 +86,10 @@ def eva_f_fused_update(gamma: float = 0.03, kv_decay: float = 0.95,
         flat, plan, used, parts = _kv_step(
             state, updates, extras, fields=_FIELDS, site='stats/eva_f',
             policy=policy, interval=interval, kv_decay=kv_decay)
+        k_impl = dispatch.impl_from_extras(extras, impl)
         p, partials = pre.precondition_tree_fused(
             flat, used, 'eva_f', gamma, plan=plan, fold_momentum=False,
-            impl=impl)
+            impl=k_impl)
         if fold_kl:
             pg = sum(partials[k][0] for k in sorted(partials))
         else:
@@ -104,9 +107,10 @@ def eva_f(lr=0.1, gamma: float = 0.03, kv_decay: float = 0.95,
           interval: int = 1,
           policy: Optional[schedpol.RefreshPolicy] = None,
           fused: bool = False,
-          kernel_impl: str = 'auto') -> GradientTransformation:
+          kernel_impl: Optional[str] = None) -> GradientTransformation:
     """Eva-f as evaluated in the paper: precondition → KL normalize → EMA
-    momentum → −lr.  ``kernel_impl``: 'auto' | 'cuda' | 'torch'."""
+    momentum → −lr.  ``kernel_impl``: 'auto' | 'cuda' | 'torch', or None for
+    the process default."""
     parts = []
     if weight_decay:
         parts.append(add_decayed_weights(weight_decay))

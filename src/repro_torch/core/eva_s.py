@@ -24,6 +24,7 @@ from repro_torch.core.eva import (_eva_cached_init, _refresh_snapshot,
 from repro_torch.core.transform import (Extras, GradientTransformation,
                                         add_decayed_weights, chain, ema_trace,
                                         scale_by_schedule, tree_device)
+from repro_torch.kernels import dispatch
 from repro_torch.schedule import policy as schedpol
 from repro_torch.schedule import runtime as schedrt
 
@@ -80,7 +81,7 @@ def _kv_step_s(state, updates, extras, *, policy, interval, kv_decay):
 def eva_s_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,
                          interval: int = 1,
                          policy: Optional[schedpol.RefreshPolicy] = None,
-                         impl: str = 'auto') -> GradientTransformation:
+                         impl: Optional[str] = None) -> GradientTransformation:
     """Bucketed Eq. 23 (k=2): Eva's rank-one form with the EMA'd gradient
     means (v_in, v_out) in place of (ā, b̄)."""
 
@@ -93,8 +94,9 @@ def eva_s_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,
         flat, plan, used, parts = _kv_step_s(
             state, updates, extras, policy=policy, interval=interval,
             kv_decay=kv_decay)
+        k_impl = dispatch.impl_from_extras(extras, impl)
         out = pre.precondition_tree(flat, used, 'eva_s', gamma, plan=plan,
-                                    impl=impl)
+                                    impl=k_impl)
         return out, EvaSState(**parts)
 
     return GradientTransformation(init, update)
@@ -102,7 +104,7 @@ def eva_s_preconditioner(gamma: float = 0.03, kv_decay: float = 0.95,
 
 def eva_s_fused_update(gamma: float = 0.03, kv_decay: float = 0.95,
                        momentum: float = 0.9, fold_graft: bool = True,
-                       impl: str = 'auto', interval: int = 1,
+                       impl: Optional[str] = None, interval: int = 1,
                        policy: Optional[schedpol.RefreshPolicy] = None
                        ) -> GradientTransformation:
     """Preconditioner + SGD-magnitude graft + EMA momentum as one transform.
@@ -123,9 +125,10 @@ def eva_s_fused_update(gamma: float = 0.03, kv_decay: float = 0.95,
         flat, plan, used, parts = _kv_step_s(
             state, updates, extras, policy=policy, interval=interval,
             kv_decay=kv_decay)
+        k_impl = dispatch.impl_from_extras(extras, impl)
         p, partials = pre.precondition_tree_fused(
             flat, used, 'eva_s', gamma, plan=plan, fold_momentum=False,
-            impl=impl)
+            impl=k_impl)
         pp = {k: partials[k][1] for k in partials}
         if fold_graft:
             gg = {k: partials[k][2] for k in partials}
@@ -146,10 +149,10 @@ def eva_s(lr=0.1, gamma: float = 0.03, kv_decay: float = 0.95,
           interval: int = 1,
           policy: Optional[schedpol.RefreshPolicy] = None,
           fused: bool = False,
-          kernel_impl: str = 'auto') -> GradientTransformation:
+          kernel_impl: Optional[str] = None) -> GradientTransformation:
     """Eva-s as evaluated in the paper: precondition → graft to the SGD
     magnitude → EMA momentum → −lr.  ``kernel_impl``: 'auto' | 'cuda' |
-    'torch'."""
+    'torch', or None for the process default."""
     parts = []
     if weight_decay:
         parts.append(add_decayed_weights(weight_decay))

@@ -6,9 +6,10 @@ Counterpart of ``repro/core/precondition.py`` for every method: ``eva``,
 ``eva_f``, ``eva_s``, ``foof``, ``kfac``, ``shampoo`` and the cached forms
 ``foof_cached``, ``kfac_cached`` and ``shampoo_cached``: weights are (...,
 d_in, d_out) and every formula broadcasts over leading stack dims.
-``impl`` ('auto' | 'cuda' | 'torch', see ``kernels/dispatch.py``) picks the
-Hopper kernels or their plain versions for the rank-one methods; the
-reference's ``impl=None`` inline path is the port's ``'torch'`` impl.  The
+``impl`` ('auto' | 'cuda' | 'torch', or None for the process default, see
+``kernels/dispatch.py``) picks the Hopper kernels or their plain versions
+for the rank-one methods; the reference's ``impl=None`` inline path is the
+port's ``'torch'`` impl.  The
 explicit-inverse methods are plain PyTorch (``torch.linalg``) in f32.
 """
 from __future__ import annotations
@@ -32,19 +33,20 @@ def _f32(x):
     return x.to(torch.promote_types(x.dtype, F32))
 
 
-def eva_precondition(g, a, b, gamma: float, impl: str = 'auto'):
+def eva_precondition(g, a, b, gamma: float, impl: Optional[str] = None):
     """P = (G − (āᵀGb̄)/(γ + ‖ā‖²‖b̄‖²) · ā b̄ᵀ)/γ.
     g: (..., d_in, d_out); a: (..., d_in); b: (..., d_out)."""
     return kops.eva_precondition(g, a, b, gamma, impl=impl)
 
 
-def eva_f_precondition(g, a, gamma: float, impl: str = 'auto'):
+def eva_f_precondition(g, a, gamma: float, impl: Optional[str] = None):
     """Eq. 21, P = (G − ā (āᵀG)/(γ + ‖ā‖²))/γ.  g: (..., d_in, d_out); a:
     (..., d_in)."""
     return kops.eva_f_precondition(g, a, gamma, impl=impl)
 
 
-def eva_s_precondition(g, v_in, v_out, gamma: float, impl: str = 'auto'):
+def eva_s_precondition(g, v_in, v_out, gamma: float,
+                       impl: Optional[str] = None):
     """Eva's rank-one form with the gradient's own (v_in, v_out) in place
     of (ā, b̄)."""
     return kops.eva_precondition(g, v_in, v_out, gamma, impl=impl)
@@ -188,7 +190,7 @@ def _item(aux, bucket, i, aux_is_bucketed, path):
 
 def precondition_tree(updates: dict, aux: dict, method: str, gamma: float, *,
                       plan: Optional[bucketing.BucketPlan] = None,
-                      impl: str = 'auto') -> dict:
+                      impl: Optional[str] = None) -> dict:
     """Precondition a flat ``{path: grad}`` tree with one vectorized call per
     stacked bucket and one call per path of the smaller buckets.
 
@@ -225,7 +227,7 @@ def precondition_tree_fused(updates: dict, aux: dict, method: str,
                             trace: Optional[dict] = None,
                             momentum: float = 0.0,
                             fold_momentum: bool = False,
-                            impl: str = 'auto'):
+                            impl: Optional[str] = None):
     """Fused precondition → update epilogue over a flat gradient tree: one
     ``eva_fused`` (``eva_f_fused`` for Eva-f) call per stacked bucket or per
     path of a small bucket; rank-one methods only.

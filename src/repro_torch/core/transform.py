@@ -32,6 +32,10 @@ class Extras:
     'gather' or 'psum'); factor: the
     ``core.factor_sharded.FactorShardConfig`` (or its kwargs) — what to do
     with oversized Kronecker factors; None keeps every factor dense.
+    kernel: the ``kernels.dispatch.KernelConfig`` — the per-step kernel impl
+    request ('auto' | 'cuda' | 'torch') of the rank-one preconditioners;
+    None leaves each on its own ``impl``.  The factor-sharded solve keeps
+    ``FactorShardConfig.impl``.
     """
 
     raw_grads: Any = None
@@ -42,6 +46,7 @@ class Extras:
     sched: Any = None
     comm: Any = None
     factor: Any = None
+    kernel: Any = None
 
 
 class GradientTransformation(NamedTuple):

@@ -66,10 +66,13 @@ class LMStream:
         toks = np.empty((self.batch, self.seq_len + 1), np.int32)
         toks[:, 0] = rng.integers(0, self.vocab, self.batch)
         u = rng.random((self.batch, self.seq_len))
-        # vectorized bigram sampling: invert the per-row CDF
+        # bigram sampling: invert the per-row CDF.  A row is a cumsum of
+        # non-negative terms, so it never decreases, and the reference's
+        # count of its entries below the draw is a binary search
+        cum = self._cum
         for t in range(self.seq_len):
-            rows = self._cum[toks[:, t]]                   # (B, V)
-            toks[:, t + 1] = (rows < u[:, t:t + 1]).sum(-1)
+            for i in range(self.batch):
+                toks[i, t + 1] = np.searchsorted(cum[toks[i, t]], u[i, t])
         dev = resolve_device(self.device)
         return {'tokens': torch.from_numpy(
                     np.ascontiguousarray(toks[:, :-1])).to(dev),

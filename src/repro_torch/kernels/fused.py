@@ -123,10 +123,11 @@ def eva_fused_stacked(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
 
 def eva_f_fused_stacked(g: torch.Tensor, a: torch.Tensor, gamma: float,
                         m: torch.Tensor | None, mu: float,
-                        fold_momentum: bool = True
+                        fold_momentum: bool = True, warps: int | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor]:
     """Fused Eva-f (Eq. 21) + epilogue; the contract of
-    :func:`eva_fused_stacked` without b, u = aᵀG taking its place."""
+    :func:`eva_fused_stacked` without b, u = aᵀG taking its place.  Launch 1
+    runs blocks of ``warps`` warps (None: ``matvec.matvec_plan``)."""
     index = launch.check_g(g, 3)
     L, d_in, d_out = g.shape
     if L < 1 or L > 65535:
@@ -148,6 +149,7 @@ def eva_f_fused_stacked(g: torch.Tensor, a: torch.Tensor, gamma: float,
                 g.dtype is torch.bfloat16, a.data_ptr(), m_ptr,
                 out.data_ptr(), aux.data_ptr(), scratch, ws.n_f32, counters,
                 ws.n_i32, gamma, 1.0 / gamma, mu, fold_momentum, L, d_in,
-                d_out, _mv.matvec_plan(d_in, d_out)[1])
+                d_out, _mv.matvec_plan(d_in, d_out)[1] if warps is None
+                else _mv.check_warps(warps))
     launches.COUNTS['eva_f_fused'] += 1
     return out, aux

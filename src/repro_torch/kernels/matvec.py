@@ -40,12 +40,23 @@ def matvec_plan(d_in: int, d_out: int) -> tuple[int, int]:
     matvec op, and launch 1 of ``eva_f_fused``): one block per strip of
     MV_COLS columns, with a warp for every MV_SUB chunks of MV_ROWS rows, up
     to MV_WARPS (more chunks take more rounds).  Depends on (d_in, d_out)
-    alone."""
+    alone.  This is the default; the dispatch cache may name any warps from
+    1 to MV_WARPS (``dispatch.configurations``)."""
     chunks = -(-d_in // MV_ROWS)
     return -(-d_out // MV_COLS), min(MV_WARPS, -(-chunks // MV_SUB))
 
 
-def _launch(g, a, L: int, d_in: int, d_out: int, lead, index: int):
+def check_warps(warps: int) -> int:
+    """``warps`` if the kernel takes it (1 to MV_WARPS), else ValueError.
+    The sums of ``csrc/matvec.cuh`` run in chunk order whatever the warps:
+    the warps set how many chunks a round loads, not the order they add."""
+    if not 1 <= warps <= MV_WARPS:
+        raise ValueError(f'warps {warps} outside [1, {MV_WARPS}]')
+    return warps
+
+
+def _launch(g, a, L: int, d_in: int, d_out: int, lead, index: int,
+            warps: int | None):
     """Launch ``csrc/matvec.cu`` into one flat f32 tensor of L·d_out + L
     values, u (L, d_out) then ‖a‖² (L,), and return the two as contiguous
     views ((L, d_out) and (L,), or (d_out,) and () unstacked), since
@@ -61,7 +72,8 @@ def _launch(g, a, L: int, d_in: int, d_out: int, lead, index: int):
                 launch.stream(index), 'matvec launch', g.data_ptr(),
                 g.dtype is torch.bfloat16, a.data_ptr(), u,
                 u + _F32_BYTES * n, L, d_in, d_out,
-                matvec_plan(d_in, d_out)[1])
+                matvec_plan(d_in, d_out)[1] if warps is None
+                else check_warps(warps))
     launches.COUNTS['matvec'] += 1
     if lead:
         return out.as_strided((L, d_out), (d_out, 1)), \
@@ -69,24 +81,27 @@ def _launch(g, a, L: int, d_in: int, d_out: int, lead, index: int):
     return out.as_strided((d_out,), (1,)), out.as_strided((), (), n)
 
 
-def matvec_and_norm_stacked(g: torch.Tensor, a: torch.Tensor
+def matvec_and_norm_stacked(g: torch.Tensor, a: torch.Tensor,
+                            warps: int | None = None
                             ) -> tuple[torch.Tensor, torch.Tensor]:
     """Stacked u_l = a_lᵀ G_l -> (L, d_out) f32, and ‖a_l‖² -> (L,) f32,
-    from one launch.  The norm feeds Eq. 21's denominator; summed in a
-    fixed order, it is the same for an item alone or in a stack, as u is."""
+    from one launch of blocks of ``warps`` warps (None: ``matvec_plan``).
+    The norm feeds Eq. 21's denominator; summed in a fixed order, it is the
+    same for an item alone or in a stack, as u is."""
     index = launch.check_g(g, 3)
     L, d_in, d_out = g.shape
     if L < 1 or L > 65535:
         raise ValueError(f'stack size L={L} outside [1, 65535]')
-    return _launch(g, a, L, d_in, d_out, (L,), index)
+    return _launch(g, a, L, d_in, d_out, (L,), index, warps)
 
 
-def matvec_and_norm(g: torch.Tensor, a: torch.Tensor
+def matvec_and_norm(g: torch.Tensor, a: torch.Tensor,
+                    warps: int | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Unstacked form: g (d_in, d_out) -> u (d_out,) f32, asq () f32."""
     index = launch.check_g(g, 2)
     d_in, d_out = g.shape
-    return _launch(g, a, 1, d_in, d_out, (), index)
+    return _launch(g, a, 1, d_in, d_out, (), index, warps)
 
 
 # Tile shapes of csrc/matvec_cols.cu, by its config index: (TM, TN, TY, TX)
@@ -96,19 +111,31 @@ COLS_TILES = ((8, 4, 8, 16), (7, 4, 8, 28))
 H100_SMS = 132
 
 
+def cols_tile(cfg: int, R: int, n: int) -> tuple[int, int, int, int, int]:
+    """(config, BM, BN, grid_x, grid_y) of ``COLS_TILES[cfg]`` for U (R, n);
+    ValueError for a config the kernel does not have."""
+    if not 0 <= cfg < len(COLS_TILES):
+        raise ValueError(f'matvec_cols config {cfg} outside '
+                         f'[0, {len(COLS_TILES)})')
+    tm, tn, ty, tx = COLS_TILES[cfg]
+    bm, bn = tm * ty, tn * tx
+    return cfg, bm, bn, -(-n // bn), -(-R // bm)
+
+
 def cols_plan(R: int, n: int, sms: int = H100_SMS
               ) -> tuple[int, int, int, int, int]:
     """(config, BM, BN, grid_x, grid_y) for U (R, n): the tile whose blocks
     leave the busiest SM the fewest outputs, ceil(tiles / sms) * BM * BN;
     on a tie the earlier config.  Depends on (R, n) and the SM count alone,
-    never on L or the band depth m (which every block walks whole)."""
+    never on L or the band depth m (which every block walks whole).  This
+    is the default; the dispatch cache may name either config."""
     best = None
-    for cfg, (tm, tn, ty, tx) in enumerate(COLS_TILES):
-        bm, bn = tm * ty, tn * tx
-        gx, gy = -(-n // bn), -(-R // bm)
+    for cfg in range(len(COLS_TILES)):
+        tile = cols_tile(cfg, R, n)
+        _, bm, bn, gx, gy = tile
         cost = -(-(gx * gy) // sms) * bm * bn
         if best is None or cost < best[0]:
-            best = (cost, (cfg, bm, bn, gx, gy))
+            best = (cost, tile)
     return best[1]
 
 
@@ -123,11 +150,13 @@ def _sm_count(index: int) -> int:
     return count
 
 
-def matvec_cols_stacked(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
+def matvec_cols_stacked(g: torch.Tensor, a: torch.Tensor,
+                        config: int | None = None) -> torch.Tensor:
     """Stacked band partials U_l = A_l G_l: g (L, m, n) f32|bf16, a (L, R, m)
-    f32 -> (L, R, n) f32, from one launch.  Each output is one f32
-    multiply-add chain over the band rows in order, so an item gives the
-    same bits alone or in a stack."""
+    f32 -> (L, R, n) f32, from one launch of tile ``COLS_TILES[config]``
+    (None: ``cols_plan``).  Each output is one f32 multiply-add chain over
+    the band rows in order, so an item gives the same bits alone or in a
+    stack, and under either tile."""
     index = launch.check_g(g, 3)
     L, m, n = g.shape
     if L < 1 or L > 65535:
@@ -139,7 +168,8 @@ def matvec_cols_stacked(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     launch.check_f32(a, (L, R, m), index)
     if max(R, m) * n >= 2 ** 31 or R * m >= 2 ** 31:
         raise ValueError(f'{R}x{m}x{n} exceeds 32-bit indexing')
-    cfg, _, _, gx, gy = cols_plan(R, n, _sm_count(index))
+    cfg, _, _, gx, gy = cols_plan(R, n, _sm_count(index)) if config is None \
+        else cols_tile(config, R, n)
     g_ptr, a_ptr = g.data_ptr(), a.data_ptr()
     a_vec = m % 4 == 0 and a_ptr % 16 == 0
     g_vec = n % 4 == 0 and g_ptr % 16 == 0
@@ -155,6 +185,6 @@ def matvec_cols_stacked(g: torch.Tensor, a: torch.Tensor) -> torch.Tensor:
     return u
 
 
-def matvec_cols(g, a):
+def matvec_cols(g, a, config: int | None = None):
     """Unstacked form: g (m, n), a (R, m) -> (R, n) f32."""
-    return matvec_cols_stacked(g[None], a[None])[0]
+    return matvec_cols_stacked(g[None], a[None], config)[0]

@@ -9,6 +9,8 @@ so a step queues its launches without waiting on the card.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.kernels import dispatch
@@ -26,7 +28,7 @@ def _fold_m(m, n_lead):
     return None if m is None else _fold(m.to(F32), n_lead)
 
 
-def eva_precondition(g, a, b, gamma: float, impl: str = 'auto'):
+def eva_precondition(g, a, b, gamma: float, impl: Optional[str] = None):
     """Eq. 13 via dispatched bilinear + rank1_update.
 
     g: (..., d_in, d_out); a: (..., d_in); b: (..., d_out).  The bilinear
@@ -51,7 +53,7 @@ def eva_precondition(g, a, b, gamma: float, impl: str = 'auto'):
     return out.reshape(lead + out.shape[1:])
 
 
-def eva_f_precondition(g, a, gamma: float, impl: str = 'auto'):
+def eva_f_precondition(g, a, gamma: float, impl: Optional[str] = None):
     """Eq. 21 via dispatched matvec + rank1_update, coeff = 1/(γ + ‖a‖²).
 
     g: (..., d_in, d_out); a: (..., d_in).  The matvec launch also returns
@@ -76,7 +78,7 @@ def eva_f_precondition(g, a, gamma: float, impl: str = 'auto'):
 
 
 def eva_fused(g, a, b, gamma: float, m, mu: float,
-              fold_momentum: bool = True, impl: str = 'auto'):
+              fold_momentum: bool = True, impl: Optional[str] = None):
     """Eq. 13 + momentum/epilogue in one dispatched call.
 
     Returns ``(out, aux)``: out f32 shaped like g; aux (..., 3) per-item
@@ -95,7 +97,7 @@ def eva_fused(g, a, b, gamma: float, m, mu: float,
 
 
 def eva_f_fused(g, a, gamma: float, m, mu: float,
-                fold_momentum: bool = True, impl: str = 'auto'):
+                fold_momentum: bool = True, impl: Optional[str] = None):
     """Eq. 21 + momentum/epilogue in one dispatched call; the contract of
     :func:`eva_fused`."""
     g = g.contiguous()

@@ -22,6 +22,9 @@ _SIGNATURES = {
                            build.I64, build.I64, build.P],
 }
 _F32_BYTES = 4
+# The partition of csrc/rank1_update.cu: blocks of R1_THREADS threads, each
+# thread a 16-byte vector of the flattened item a pass; one configuration
+R1_THREADS = 256
 
 
 def _launch(g, a, b, coeff, scale, L: int, d_in: int, d_out: int, lead,

@@ -12,17 +12,24 @@ every device and every rank gets the same weights); batches from
 ``LMStream(seed=0)`` behind a ``Prefetcher``.  The reference's flags map
 onto the port:
 
-* ``--kernel-impl {auto,cuda,torch}`` goes to the optimizer's
-  ``kernel_impl`` (Eva, Eva-f, Eva-s) and to ``FactorShardConfig.impl``
-  (the sharded solve's band products); left out, each keeps ``'auto'``;
+* ``--kernel-impl {auto,cuda,torch}`` and ``--autotune`` build the
+  trainer's ``KernelConfig`` (``kernels/dispatch.py``), as in the
+  reference: its impl reaches Eva, Eva-f and Eva-s through
+  ``Extras.kernel``, and ``--kernel-impl`` also sets
+  ``FactorShardConfig.impl`` (the sharded solve's band products); left
+  out, each keeps the process default, ``'auto'``.  ``--autotune`` first
+  tunes the distinct trailing 2-D shapes of ``model.precon_paths()`` over
+  ``autotune.OPS`` on the run's device and writes
+  ``<out-dir>/<arch>-<opt>/tile_cache.json``, which the trainer installs
+  (every rank, under ``--elastic``); the step records' ``kernel_tiles``
+  show what each op resolved to;
 * ``--head-policy``, ``--head-threshold`` and ``--solve-iters`` build the
   ``FactorShardConfig``; ``--profile`` is ``TrainerConfig(profile=True)``;
 * ``--elastic --world W`` runs ``Trainer.fit_elastic`` in W processes
   (``launch/workers.py::spawn``; gloo on the CPU, NCCL on the card, one
   card a rank); ``--distributed --elastic`` runs it in this process over a
   group started from the environment (``RANK``, ``WORLD_SIZE``,
-  ``MASTER_ADDR``, ``MASTER_PORT``, as under ``torchrun``);
-* ``--autotune`` raises: the autotuned kernel cache is not ported yet.
+  ``MASTER_ADDR``, ``MASTER_PORT``, as under ``torchrun``).
 
 Metrics go to ``<out-dir>/<arch>-<opt>/metrics.jsonl``
 (``scripts/obs_report_torch.py`` reads them).
@@ -31,13 +38,11 @@ from __future__ import annotations
 
 import argparse
 import functools
-import inspect
 from typing import Optional
 
 import torch
 import torch.distributed as dist
 
-from repro_torch import core
 from repro_torch.configs import get_config, get_reduced
 from repro_torch.configs.registry import ARCH_IDS, demo_lm
 from repro_torch.core import kv as kvlib
@@ -45,6 +50,8 @@ from repro_torch.core import make_optimizer
 from repro_torch.core.factor_sharded import FactorShardConfig
 from repro_torch.data import LMStream, Prefetcher
 from repro_torch.device import resolve_device
+from repro_torch.kernels import autotune
+from repro_torch.kernels.dispatch import KernelConfig
 from repro_torch.launch import workers
 from repro_torch.models import build_model
 from repro_torch.models import module as M
@@ -79,11 +86,14 @@ def build_parser() -> argparse.ArgumentParser:
                     help="iterations of the head-policy='shard' solve")
     ap.add_argument('--kernel-impl', default=None,
                     choices=['auto', 'cuda', 'torch'],
-                    help="the hand-written kernels ('cuda'), their plain "
-                         "PyTorch versions ('torch'), or by device ('auto'); "
-                         "default: leave each optimizer on its own 'auto'")
+                    help="kernel dispatch impl for the Eva hot-path ops "
+                         "(kernels.dispatch): the hand-written kernels "
+                         "('cuda'), their plain PyTorch versions ('torch'), "
+                         "or by cache and device ('auto'); default: leave "
+                         'the optimizer on the process default')
     ap.add_argument('--autotune', action='store_true',
-                    help='autotuned kernel choices (not ported yet)')
+                    help='tune the model\'s kernel shapes before training '
+                         'and install the winners (kernels.autotune)')
     ap.add_argument('--fused', action='store_true',
                     help='fused precondition→update epilogue: one kernel '
                          'call per bucket for eva/eva_f/eva_s, single-'
@@ -140,16 +150,46 @@ def _opt_kwargs(args) -> dict:
     kw = {'lr': args.lr}
     if args.fused:
         kw['fused'] = True
-    factory = getattr(core, args.opt, None)
-    if args.kernel_impl is not None and factory is not None and \
-            'kernel_impl' in inspect.signature(factory).parameters:
-        kw['kernel_impl'] = args.kernel_impl
     return kw
 
 
-def run(args, device, world: Optional[int] = None) -> list:
+def _precon_shapes(model) -> list[tuple[int, int]]:
+    """The distinct trailing 2-D shapes of the preconditioned weights:
+    the shapes the dispatch resolves (a layer stack shares one)."""
+    flat = M.flatten_specs(model.param_specs())
+    return sorted({tuple(int(d) for d in flat[p].shape[-2:])
+                   for p in model.precon_paths()
+                   if p in flat and len(flat[p].shape) >= 2})
+
+
+def kernel_config(args, device, tune: bool = True
+                  ) -> Optional[KernelConfig]:
+    """The run's ``KernelConfig`` from ``--kernel-impl`` and
+    ``--autotune``; None without either.  ``--autotune`` tunes the model's
+    shapes on ``device`` and writes the cache (``tune=False``: only names
+    the file another process writes)."""
+    if not (args.kernel_impl or args.autotune):
+        return None
+    cache_path = None
+    if args.autotune:
+        cfg = arch_config(args)
+        cache_path = f'{args.out_dir}/{cfg.name}-{args.opt}/tile_cache.json'
+        if tune:
+            shapes = _precon_shapes(build_model(cfg))
+            print(f'[launch] autotuning {len(shapes)} shapes: {shapes}',
+                  flush=True)
+            cache = autotune.tune(shapes, device=device)
+            cache_path = str(autotune.write(cache, cache_path))
+            print(f'[launch] autotune cache -> {cache_path}', flush=True)
+    return KernelConfig(impl=args.kernel_impl or 'auto',
+                        autotune_cache=cache_path, autotune=args.autotune)
+
+
+def run(args, device, world: Optional[int] = None,
+        kernel: Optional[KernelConfig] = None) -> list:
     """Build and train one run on ``device``; ``world`` set: the elastic
-    loop over a started group.  Returns the trainer's history."""
+    loop over a started group; ``kernel``: the trainer's ``KernelConfig``.
+    Returns the trainer's history."""
     cfg = arch_config(args)
     model = build_model(cfg)
     params = init_params(model, device)
@@ -175,7 +215,7 @@ def run(args, device, world: Optional[int] = None) -> list:
                        ckpt_every=args.ckpt_every, profile=args.profile,
                        out_dir=f'{args.out_dir}/{cfg.name}-{args.opt}')
     trainer = Trainer(model, opt, capture, tc, taps_fn=taps_fn,
-                      factor=factor, device=device)
+                      factor=factor, kernel=kernel, device=device)
     data = stream if args.no_prefetch else Prefetcher(stream)
     try:
         if world is not None:
@@ -188,10 +228,10 @@ def run(args, device, world: Optional[int] = None) -> list:
     return history
 
 
-def _elastic_rank(rank: int, world: int, args) -> list:
+def _elastic_rank(rank: int, world: int, args, kernel) -> list:
     """One spawned rank of ``--elastic``."""
     del rank
-    return run(args, resolve_device(args.device), world=world)
+    return run(args, resolve_device(args.device), world=world, kernel=kernel)
 
 
 def main(argv: Optional[list[str]] = None) -> list:
@@ -199,10 +239,6 @@ def main(argv: Optional[list[str]] = None) -> list:
     history: the losses of ``Trainer.fit``, or rank 0's (step, loss)
     pairs under ``--elastic``."""
     args = build_parser().parse_args(argv)
-    if args.autotune:
-        raise NotImplementedError(
-            '--autotune: the autotuned kernel cache is not ported yet '
-            '(ROADMAP.md §1 item 13d)')
     device = resolve_device(args.device)
     if args.kernel_impl == 'cuda' and device.type != 'cuda':
         raise ValueError("--kernel-impl cuda runs the hand-written kernels "
@@ -214,16 +250,23 @@ def main(argv: Optional[list[str]] = None) -> list:
                              'started group: add --elastic')
         device = workers.init_workers(device=device)
         try:
-            return run(args, device, world=args.world or dist.get_world_size())
+            # rank 0 tunes and writes the cache; every rank installs it
+            kernel = kernel_config(args, device,
+                                   tune=dist.get_rank() == 0)
+            if args.autotune:
+                dist.barrier()
+            return run(args, device, world=args.world or dist.get_world_size(),
+                       kernel=kernel)
         finally:
             workers.shutdown_workers()
+    kernel = kernel_config(args, device)
     if args.elastic:
         world = args.world or (torch.cuda.device_count()
                                if device.type == 'cuda' else 1)
-        results = workers.spawn(_elastic_rank, world, args=(args,),
+        results = workers.spawn(_elastic_rank, world, args=(args, kernel),
                                 device=args.device, timeout=float('inf'))
         return results[0]
-    return run(args, device)
+    return run(args, device, kernel=kernel)
 
 
 if __name__ == '__main__':

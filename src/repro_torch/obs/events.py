@@ -57,6 +57,10 @@ SCHEMAS: dict[str, dict[str, Field]] = {
         'grad_norm': Field(_NUM),
         'step_time_s': Field(_NUM, unit='s'),
         'exchanged_mb_cum': Field(_NUM, unit='MiB'),
+        # the kernel dispatch: the requested impl and the latest resolved
+        # impl and configuration per op (kernels.dispatch.choices_snapshot)
+        'kernel_impl': Field(_STR, unit="requested impl ('auto'|...)"),
+        'kernel_tiles': Field(_DICT, unit='op -> resolved impl+tiles'),
         **_declared(_schedrt),
         **_declared(_pipemod),
         **_declared(_fsh),

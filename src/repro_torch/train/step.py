@@ -132,6 +132,7 @@ def make_train_step(model, opt: GradientTransformation,
                     sched: Optional[schedrt.RefreshRuntime] = None,
                     comm: Optional[Any] = None,
                     factor: Optional[Any] = None,
+                    kernel: Optional[Any] = None,
                     device='cuda') -> Callable:
     """Build ``train_step(params, opt_state, batch) -> (params, state,
     metrics)``.
@@ -143,8 +144,10 @@ def make_train_step(model, opt: GradientTransformation,
     scan.  ``sched`` is the refresh runtime, ``comm`` the
     ``comm.exchange.ExchangeConfig`` (the codecs of the statistics and
     refresh exchanges under a data group in scope) and ``factor`` the
-    ``core.factor_sharded.FactorShardConfig``, all threaded through
-    ``Extras``; None keeps every factor dense.  The metrics hold the loss,
+    ``core.factor_sharded.FactorShardConfig`` (None keeps every factor
+    dense) and ``kernel`` the ``kernels.dispatch.KernelConfig`` (None leaves
+    the optimizers on their own ``kernel_impl``), all threaded through
+    ``Extras``.  The metrics hold the loss,
     the gradient norm, the refresh counters of ``schedule_metrics`` (when a
     transform is scheduled) and, when a factor is sharded,
     ``factor_sharded.step_metrics``.
@@ -183,7 +186,7 @@ def make_train_step(model, opt: GradientTransformation,
             grads, opt_state, params=params,
             extras=Extras(stats=stats, loss=loss,
                           plan=_plan_for_stats(grads, stats), sched=sched,
-                          comm=comm, factor=factor))
+                          comm=comm, factor=factor, kernel=kernel))
         new_params = apply_updates(params, updates)
         return new_params, new_state, _step_metrics(loss, grads, new_state)
 
@@ -209,6 +212,7 @@ def make_dp_step(model, opt: GradientTransformation,
                  sched: Optional[schedrt.RefreshRuntime] = None,
                  comm: Optional[Any] = None,
                  factor: Optional[Any] = None,
+                 kernel: Optional[Any] = None,
                  device='cuda') -> Callable:
     """The explicit data-parallel step over ``group`` (a
     ``torch.distributed`` group, a ``comm.group.DataScope`` — a pod scope
@@ -246,7 +250,8 @@ def make_dp_step(model, opt: GradientTransformation,
                 grads, opt_state, params=params,
                 extras=Extras(stats=stats, loss=loss,
                               plan=_plan_for_stats(grads, stats),
-                              sched=sched, comm=comm, factor=factor))
+                              sched=sched, comm=comm, factor=factor,
+                              kernel=kernel))
             new_params = apply_updates(params, updates)
             return new_params, new_state, _step_metrics(loss, grads,
                                                         new_state)
@@ -260,6 +265,7 @@ def make_phased_step(model, opt: GradientTransformation,
                      sched: Optional[schedrt.RefreshRuntime] = None,
                      comm: Optional[Any] = None,
                      factor: Optional[Any] = None,
+                     kernel: Optional[Any] = None,
                      device='cuda') -> tuple[Callable, Callable, Callable]:
     """The train step cut at its phase boundaries, for span timing:
     ``grad_fn(params, batch) -> (loss, grads, stats)``,
@@ -281,7 +287,7 @@ def make_phased_step(model, opt: GradientTransformation,
             grads, opt_state, params=params,
             extras=Extras(stats=stats, loss=loss,
                           plan=_plan_for_stats(grads, stats), sched=sched,
-                          comm=comm, factor=factor))
+                          comm=comm, factor=factor, kernel=kernel))
         return updates, new_state, _step_metrics(loss, grads, new_state)
 
     def apply_fn(params, updates):
@@ -296,23 +302,25 @@ def init_opt_state(model, opt: GradientTransformation,
                    sched: Optional[schedrt.RefreshRuntime] = None,
                    comm: Optional[Any] = None,
                    factor: Optional[Any] = None,
+                   kernel: Optional[Any] = None,
                    device='cuda'):
     """Materialized optimizer state.  The stats' shapes come from one
     forward/backward pass on ``batch``; the state holds zeros of them.
-    ``taps_fn``, ``sched``, ``comm`` and ``factor`` must be the train
-    step's."""
+    ``taps_fn``, ``sched``, ``comm``, ``factor`` and ``kernel`` must be the
+    train step's."""
     dev = resolve_device(device)
     sched = sched if sched is not None else schedrt.RefreshRuntime()
     if not capture.active:
         return opt.init(params, Extras(sched=sched, comm=comm,
-                                       factor=factor))
+                                       factor=factor, kernel=kernel))
     batch = _to_device(batch, dev)
     _, _, stats = compute_grads_and_stats(
         model, params, batch, capture, taps_caller(taps_fn)(params, batch))
     zero_stats = tree_map(torch.zeros_like, stats)
     return opt.init(params, Extras(stats=zero_stats,
                                    plan=_plan_for_stats(params, zero_stats),
-                                   sched=sched, comm=comm, factor=factor))
+                                   sched=sched, comm=comm, factor=factor,
+                              kernel=kernel))
 
 
 def stats_plan_of(model, capture: kvlib.CaptureConfig, params: dict,

@@ -22,8 +22,10 @@
 The port's step returns new tensors and never writes its inputs, so
 ``fit`` never modifies the caller's tensors and ``TrainerConfig`` has no
 ``donate`` (the reference's buffer donation).  :meth:`Trainer.fit_elastic`
-is the multi-worker loop over ``torch.distributed``; an autotuned kernel
-cache is not ported.
+is the multi-worker loop over ``torch.distributed``.  ``kernel`` (a
+``kernels.dispatch.KernelConfig``) installs its autotune cache at
+construction and goes into every step's ``Extras``; with it, each ``step``
+record carries ``kernel_impl`` and ``kernel_tiles``, as in the reference.
 """
 from __future__ import annotations
 
@@ -38,6 +40,7 @@ import torch.distributed as dist
 from repro_torch.core import kv as kvlib
 from repro_torch.core.transform import GradientTransformation, tree_map
 from repro_torch.device import resolve_device
+from repro_torch.kernels import dispatch as kdispatch
 from repro_torch.launch import workers
 from repro_torch.obs import events as obs_events
 from repro_torch.obs import spans as obs_spans
@@ -67,15 +70,6 @@ class Trainer:
                  taps_fn: Optional[Callable] = None,
                  sched: Optional[schedrt.RefreshRuntime] = None,
                  comm=None, factor=None, kernel=None, device='cuda'):
-        if kernel is not None:
-            if getattr(kernel, 'autotune_cache', None):
-                raise NotImplementedError(
-                    'kernel.autotune_cache: the autotuned tile cache is not '
-                    'ported (ROADMAP.md §1 item 13)')
-            raise ValueError('the port picks the kernel impl per optimizer '
-                             "(make_optimizer(..., kernel_impl=...)) and "
-                             "per factor config (FactorShardConfig.impl); "
-                             'pass kernel=None')
         self.device = resolve_device(device)
         self.model = model
         self.opt = opt
@@ -85,18 +79,24 @@ class Trainer:
         self.sched = sched if sched is not None else schedrt.RefreshRuntime()
         self.comm = comm
         self.factor = factor
+        # the kernel dispatch request (kernels.dispatch.KernelConfig); its
+        # cache is installed here, in every process that builds a Trainer
+        self.kernel = kernel
+        if kernel is not None and kernel.autotune_cache:
+            kdispatch.install_cache(kernel.autotune_cache)
         self.out_dir = Path(cfg.out_dir)
         self.out_dir.mkdir(parents=True, exist_ok=True)
         self.ckpt_dir = self.out_dir / 'ckpt'
         self._ckptr = ckpt.AsyncCheckpointer(self.ckpt_dir, cfg.keep_ckpts)
         self.step_fn = make_train_step(model, opt, capture, taps_fn=taps_fn,
                                        sched=self.sched, comm=comm,
-                                       factor=factor, device=self.device)
+                                       factor=factor, kernel=kernel,
+                                       device=self.device)
         self._phases = None
         if cfg.profile:
             self._phases = make_phased_step(
                 model, opt, capture, taps_fn=taps_fn, sched=self.sched,
-                comm=comm, factor=factor, device=self.device)
+                comm=comm, factor=factor, kernel=kernel, device=self.device)
         self._watchdog = obs_spans.StragglerWatchdog(cfg.straggler_factor)
         self._preempted = False
         self.metrics_path = self.out_dir / 'metrics.jsonl'
@@ -105,7 +105,7 @@ class Trainer:
         return init_opt_state(self.model, self.opt, self.capture, params,
                               batch, taps_fn=self.taps_fn, sched=self.sched,
                               comm=self.comm, factor=self.factor,
-                              device=self.device)
+                              kernel=self.kernel, device=self.device)
 
     def _log_ownership(self, recorder, params, batch) -> None:
         """One startup record: the per-bucket refresh-owner map, at W = 1
@@ -142,6 +142,17 @@ class Trainer:
         refresh_b = sum(v['bytes_per_call'] for s, v in sites.items()
                         if s.startswith('refresh/'))
         return round((step_b * steps + refresh_b * refreshes) / 2 ** 20, 3)
+
+    def _kernel_fields(self) -> dict:
+        """The step record's kernel fields: the requested impl and the
+        latest resolved choice per op; none without a ``KernelConfig``."""
+        if self.kernel is None:
+            return {}
+        out = {'kernel_impl': self.kernel.impl}
+        tiles = kdispatch.choices_snapshot()
+        if tiles:
+            out['kernel_tiles'] = tiles
+        return out
 
     # -- preemption ---------------------------------------------------------
 
@@ -268,6 +279,7 @@ class Trainer:
                         rec['exchanged_mb_cum'] = self._exchanged_mb(
                             sites, step + 1 - start_step,
                             rec.get('refreshes', ref_base) - ref_base)
+                    rec.update(self._kernel_fields())
                     recorder.emit('step', **rec)
                     if self._phases is not None:
                         self._emit_profile(recorder, step)
@@ -413,7 +425,8 @@ class Trainer:
                 step_fns[w_to] = make_dp_step(
                     self.model, self.opt, self.capture, group,
                     taps_fn=self.taps_fn, sched=self.sched, comm=self.comm,
-                    factor=self.factor, device=self.device)
+                    factor=self.factor, kernel=self.kernel,
+                    device=self.device)
             cur['step_fn'] = step_fns.get(w_to)
             cur['world'] = w_to
             if w_from != w_to:
@@ -473,7 +486,7 @@ class Trainer:
                         recorder.emit('step', step=step, loss=loss,
                                       grad_norm=float(metrics['grad_norm']),
                                       step_time_s=round(dt, 4),
-                                      **sched_fields)
+                                      **sched_fields, **self._kernel_fields())
                         if rank == 0:
                             print(f'[trainer] step {step:6d} loss '
                                   f'{loss:.4f} ({dt*1e3:.0f} ms) '

@@ -5,7 +5,8 @@
   ``configs``) resolves in the port's package of the same name, and each
   public def/class of a reference module resolves in its port module (under
   the port's name where the port renamed it), apart from the names listed
-  below by the ROADMAP item they wait for.
+  below by the ROADMAP item they wait for, and ``kernels/tiles.py``, which
+  the port leaves out on purpose (``ABSENT_MODULES`` says why).
 * The new functions match the reference on seeded numpy inputs, f32:
   ``eva_explicit``, ``eva_f_precondition`` and ``eva_s_precondition`` within
   1e-5 relative (of the output's largest magnitude), and ``eva_explicit``
@@ -49,18 +50,19 @@ WAITING_EXPORTS = {
 }
 # reference modules with no port module yet
 WAITING_MODULES = {
-    'kernels/autotune.py': '13d', 'kernels/tiles.py': '13d',
     'launch/dryrun.py': '13h', 'launch/hlo_analysis.py': '13h',
     'launch/mesh.py': '13g', 'sharding/__init__.py': '13g',
     'sharding/compat.py': '13g', 'sharding/constraints.py': '13g',
     'sharding/logical.py': '13g',
 }
+# reference modules the port leaves out on purpose: module -> why
+ABSENT_MODULES = {
+    'kernels/tiles.py': 'fit_block clamps a tile so that the Pallas kernels '
+                        'pad less; the CUDA kernels mask their ragged edges '
+                        'and pad nothing (ROADMAP.md §2, the hazard)',
+}
 # public defs of a reference module that are not in its port module
 WAITING_DEFS = {
-    'kernels/dispatch.py': {n: '13d' for n in (
-        'Choice', 'KernelConfig', 'backend', 'cache_key', 'choices_snapshot',
-        'default_impl', 'impl_from_extras', 'impl_override', 'install_cache',
-        'reset_cache', 'set_default_impl')},
     'models/module.py': {'abstract_params': '13h'},
     'models/registry.py': {'train_batch_specs': '13h',
                            'prefill_batch_specs': '13h',
@@ -114,7 +116,7 @@ REF_MODULES = sorted(str(p.relative_to(ROOT / 'src' / 'repro'))
 
 @pytest.mark.parametrize('rel', REF_MODULES)
 def test_reference_module_defs_resolve_in_the_port(rel):
-    if rel in WAITING_MODULES:
+    if rel in WAITING_MODULES or rel in ABSENT_MODULES:
         assert not (ROOT / 'src' / 'repro_torch' / rel).exists()
         return
     name = 'repro_torch.' + rel[:-3].replace('/', '.').removesuffix(

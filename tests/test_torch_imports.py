@@ -1,6 +1,6 @@
 """The port stands alone: no module of ``src/repro_torch``, no
-``examples/*_torch.py``, ``scripts/obs_report_torch.py`` nor
-``chip_smoke.py`` imports JAX or the reference package, and the entry points
+``examples/*_torch.py``, ``scripts/*_torch.py`` nor ``chip_smoke.py``
+imports JAX or the reference package, and the entry points
 run on the card unless the caller asks for the CPU."""
 import ast
 from pathlib import Path
@@ -12,7 +12,7 @@ torch = pytest.importorskip('torch')
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / 'src' / 'repro_torch').rglob('*.py')) + \
     sorted((ROOT / 'examples').glob('*_torch.py')) + \
-    [ROOT / 'scripts' / 'obs_report_torch.py', ROOT / 'chip_smoke.py']
+    sorted((ROOT / 'scripts').glob('*_torch.py')) + [ROOT / 'chip_smoke.py']
 BANNED = ('jax', 'jaxlib', 'repro')
 
 
@@ -47,7 +47,8 @@ def test_port_files_found():
             'workers.py', 'runtime.py', 'report.py', 'train.py',
             'obs_report_torch.py', 'quickstart_torch.py',
             'train_lm_torch.py', 'autoencoder_eva_torch.py',
-            'optimizer_comparison_torch.py', 'serve_lm_torch.py'} <= names
+            'optimizer_comparison_torch.py', 'serve_lm_torch.py',
+            'autotune.py', 'autotune_torch.py'} <= names
 
 
 MULTI_WORKER_MODULES = ['repro_torch.comm.codec', 'repro_torch.comm.metrics',

@@ -9,8 +9,10 @@ test only.  Stated tolerance: every ``step`` record's loss within rtol 1e-4
 of the reference's (Eva, Eva fused, K-FAC with the 512-wide head sharded,
 Shampoo).  ``--elastic --world 2`` (two gloo ranks) is held to the port's
 own ``--elastic --world 1`` within rtol 1e-4: the reference's elastic run
-needs two forced host devices.  The refusals: ``--autotune`` names ROADMAP
-item 13d, ``--kernel-impl cuda`` on the CPU raises, a stub-frontend arch
+needs two forced host devices.  ``--autotune`` (4 steps, both packages'
+``autotune.default_bench`` replaced by the same rising fake) tunes the
+reference's keys and tracks the reference's CLI within rtol 1e-4.  The
+refusals: ``--kernel-impl cuda`` on the CPU raises, a stub-frontend arch
 exits with the reference's message.
 """
 import json
@@ -24,17 +26,37 @@ import jax  # noqa: E402
 import numpy as np  # noqa: E402
 
 from repro.configs.registry import demo_lm as jdemo_lm  # noqa: E402
+from repro.kernels import autotune as jautotune  # noqa: E402
+from repro.kernels import dispatch as jdispatch  # noqa: E402
 from repro.launch import train as jtrain  # noqa: E402
 from repro.models import build_model as jbuild  # noqa: E402
 from repro.models import module as JM  # noqa: E402
 from repro.obs.events import validate_record as ref_validate  # noqa: E402
-from repro_torch.kernels import launches  # noqa: E402
+from repro_torch.kernels import autotune, dispatch, launches  # noqa: E402
+from repro_torch.kernels.dispatch import KernelConfig  # noqa: E402
 from repro_torch.launch import train as ttrain  # noqa: E402
 from repro_torch.models import module as M  # noqa: E402
 from repro_torch.obs.events import validate_record  # noqa: E402
 from test_torch_lm_train import _one_thread  # noqa: E402,F401
 
 RTOL = 1e-4
+
+
+def _reset_dispatch():
+    for mod in (dispatch, jdispatch):
+        mod.reset_cache()
+        mod.set_default_impl('auto')
+    jdispatch._choices.clear()
+
+
+@pytest.fixture(autouse=True)
+def _clean_dispatch_state():
+    """The CLIs install their caches in-process: reset both packages'
+    dispatch state around each test."""
+    _reset_dispatch()
+    yield
+    _reset_dispatch()
+
 BASE = ['--arch', 'demo', '--steps', '6', '--batch', '4', '--seq-len', '32',
         '--log-every', '1', '--no-prefetch']
 CASES = {
@@ -115,9 +137,60 @@ def test_profile_run_writes_spans_and_checkpoints(tmp_path):
                                                      'step_00000006']
 
 
-def test_autotune_names_its_roadmap_item():
-    with pytest.raises(NotImplementedError, match='13d'):
-        ttrain.main(BASE + ['--autotune', '--device', 'cpu'])
+def _fake_bench():
+    """Strictly increasing times: the first candidate wins ('xla' in the
+    reference, 'torch' in the port), and no candidate runs."""
+    calls = {'n': 0}
+
+    def bench(fn, reps=3, warmup=1):
+        del fn, reps, warmup
+        calls['n'] += 1
+        return float(calls['n'])
+    return bench
+
+
+def test_autotune_names_its_roadmap_item(tmp_path, monkeypatch):
+    """``--autotune`` (ROADMAP item 13d) against the reference's: both
+    tune the same keys (apart from the backend prefix) under the same
+    fake bench, train from the same weights within rtol 1e-4 a step, and
+    the port's step records carry ``kernel_impl`` 'auto' and the
+    ``kernel_tiles`` its cache names."""
+    flags = ['--arch', 'demo', '--steps', '4', '--batch', '4', '--seq-len',
+             '32', '--log-every', '1', '--no-prefetch', '--autotune']
+    monkeypatch.setattr(jautotune, 'default_bench', _fake_bench())
+    monkeypatch.setattr(autotune, 'default_bench', _fake_bench())
+    monkeypatch.setattr(sys, 'argv', ['train'] + flags + [
+        '--out-dir', str(tmp_path / 'ref')])
+    jtrain.main()
+    monkeypatch.setattr(ttrain, 'init_params', _reference_params)
+    launches.reset()
+    history = ttrain.main(flags + ['--out-dir', str(tmp_path / 'port'),
+                                   '--device', 'cpu'])
+    assert all(v == 0 for v in launches.snapshot().values())
+    caches = {side: json.loads((tmp_path / side / 'demo-small-eva' /
+                                'tile_cache.json').read_text())['entries']
+              for side in ('ref', 'port')}
+    assert len(caches['port']) == 5 * len(autotune.OPS)
+    assert {k.split('/', 1)[1] for k in caches['port']} == \
+        {k.split('/', 1)[1] for k in caches['ref']}
+    assert all(e['impl'] == 'xla' for e in caches['ref'].values())
+    assert all(e['impl'] == 'torch' for e in caches['port'].values())
+    ref_steps, ref = _step_losses(tmp_path / 'ref', 'eva')
+    steps, got = _step_losses(tmp_path / 'port', 'eva')
+    assert steps == ref_steps == list(range(4))
+    np.testing.assert_allclose(got, ref, rtol=RTOL, atol=0)
+    np.testing.assert_array_equal(np.array(history), got)
+    recs = [json.loads(line) for line in (
+        tmp_path / 'port' / 'demo-small-eva' / 'metrics.jsonl'
+    ).read_text().splitlines()]
+    for r in (r for r in recs if r['event'] == 'step'):
+        assert r['kernel_impl'] == 'auto'
+        assert set(r['kernel_tiles']) == {'bilinear', 'rank1_update'}
+        for op, choice in r['kernel_tiles'].items():
+            impl, blocks, _, shape = choice.split()
+            e = caches['port'][f'cpu/{op}/float32/{shape}']
+            assert (impl, blocks) == (e['impl'], f"{e['block_in']}x"
+                                                 f"{e['block_out']}")
 
 
 def test_kernel_impl_cuda_on_the_cpu_raises(tmp_path):
@@ -128,9 +201,10 @@ def test_kernel_impl_cuda_on_the_cpu_raises(tmp_path):
 
 def test_kernel_impl_reaches_the_optimizer_and_the_factor(monkeypatch,
                                                           tmp_path):
-    """``--kernel-impl torch`` becomes Eva's ``kernel_impl`` and the
-    sharded solve's ``FactorShardConfig.impl``; an optimizer without a
-    kernel takes no ``kernel_impl``."""
+    """``--kernel-impl torch`` becomes the trainer's ``KernelConfig``, which
+    reaches the optimizer through ``Extras.kernel`` as in the reference, and
+    the sharded solve's ``FactorShardConfig.impl``; the optimizer factories
+    take no ``kernel_impl``."""
     seen = {}
     real = ttrain.make_optimizer
 
@@ -138,23 +212,27 @@ def test_kernel_impl_reaches_the_optimizer_and_the_factor(monkeypatch,
         seen[name] = kw
         return real(name, **kw)
     monkeypatch.setattr(ttrain, 'make_optimizer', spy)
-    factors = []
+    factors, kernels = [], []
     real_trainer = ttrain.Trainer
 
-    def trainer(*a, factor=None, **kw):
+    def trainer(*a, factor=None, kernel=None, **kw):
         factors.append(factor)
-        return real_trainer(*a, factor=factor, **kw)
+        kernels.append(kernel)
+        return real_trainer(*a, factor=factor, kernel=kernel, **kw)
     monkeypatch.setattr(ttrain, 'Trainer', trainer)
     short = ['--arch', 'demo', '--steps', '1', '--batch', '2', '--seq-len',
              '8', '--no-prefetch', '--device', 'cpu', '--kernel-impl',
              'torch', '--out-dir', str(tmp_path)]
     ttrain.main(short + ['--opt', 'eva'])
+    assert all(v.startswith('torch ')
+               for v in dispatch.choices_snapshot().values())
     ttrain.main(short + ['--opt', 'kfac', '--head-policy', 'shard',
                          '--head-threshold', '512', '--solve-iters', '4'])
     ttrain.main(short + ['--opt', 'sgd'])
-    assert seen['eva']['kernel_impl'] == 'torch'
-    assert 'kernel_impl' not in seen['kfac']
-    assert 'kernel_impl' not in seen['sgd']
+    assert not any('kernel_impl' in kw for kw in seen.values())
+    assert kernels == [KernelConfig(impl='torch')] * 3
+    assert set(dispatch.choices_snapshot()) >= {'bilinear', 'rank1_update',
+                                                'matvec_cols'}
     assert factors[0] is None
     assert (factors[1].impl, factors[1].head_policy,
             factors[1].shard_threshold, factors[1].solve_iters) == (

@@ -89,20 +89,18 @@ def test_bench_rows_validate_in_both():
     assert events.validate_record(typo)
 
 
-# the step record's kernel-choice fields come with the dispatch layer
-# (ROADMAP item 13d)
-WAITING_13D = {'kernel_impl', 'kernel_tiles'}
+# the step record's kernel-choice fields (the dispatch layer's)
+KERNEL_FIELDS = {'kernel_impl', 'kernel_tiles'}
 
 
 def test_schemas_name_the_reference_fields():
     """Every record type and site field of the reference is the port's,
-    with the same types and requiredness, but the step record's two
-    kernel-choice fields."""
+    with the same types and requiredness, the step record's two
+    kernel-choice fields among them."""
     assert set(events.SCHEMAS) == set(jevents.SCHEMAS)
-    assert WAITING_13D <= set(jevents.SCHEMAS['step'])
+    assert KERNEL_FIELDS <= set(jevents.SCHEMAS['step'])
+    assert KERNEL_FIELDS <= set(events.SCHEMAS['step'])
     for ev, fields in jevents.SCHEMAS.items():
-        fields = {k: f for k, f in fields.items()
-                  if ev != 'step' or k not in WAITING_13D}
         assert set(events.SCHEMAS[ev]) == set(fields), ev
         for name, fld in fields.items():
             mine = events.SCHEMAS[ev][name]
@@ -111,6 +109,20 @@ def test_schemas_name_the_reference_fields():
     assert {k: (f.types, f.required) for k, f in
             events._SITE_FIELDS.items()} == {
         k: (f.types, f.required) for k, f in jevents._SITE_FIELDS.items()}
+
+
+def test_kernel_fields_validate_in_both():
+    """The step record's kernel-choice fields, as ``Trainer`` writes them,
+    validate in both packages, and a mistyped one fails both alike."""
+    rec = {'event': 'step', 'v': 1, 'step': 0, 'loss': 1.5,
+           'kernel_impl': 'auto',
+           'kernel_tiles': {'bilinear': 'cuda 1x2048 @ 768x2048'}}
+    assert events.validate_record(rec) == jevents.validate_record(rec) == []
+    for key, bad in (('kernel_impl', 3), ('kernel_tiles', 'cuda')):
+        typo = {**rec, key: bad}
+        assert events.validate_record(typo) == \
+            jevents.validate_record(typo)
+        assert len(events.validate_record(typo)) == 1
 
 
 @pytest.mark.parametrize('path', [FIX_A, FIX_B], ids=['a', 'b'])

@@ -7,8 +7,12 @@ reference's ``Trainer.fit`` from the same weights within rtol 1e-4 (atol
 equals an unbroken one bit for bit (Eva under ``adaptive`` on the MLP, and
 Eva on the LM); a preemption request writes a synchronous checkpoint and
 stops; a forced slow step emits a ``straggler`` record; profile mode emits
-fenced spans and ``profile`` records; and every record of ``metrics.jsonl``
-passes the reference's own ``repro.obs.events.validate_record``.
+fenced spans and ``profile`` records; a ``KernelConfig`` with an autotune
+cache is accepted, installs its cache and writes ``kernel_impl`` and
+``kernel_tiles`` into every step record, with the losses of the run
+without it bit for bit and the reference's ``KernelConfig(impl='xla')``
+run within rtol 1e-4; and every record of ``metrics.jsonl`` passes the
+reference's own ``repro.obs.events.validate_record``.
 """
 import json
 
@@ -23,6 +27,7 @@ from repro.configs.registry import demo_lm as jdemo_lm  # noqa: E402
 from repro.core import kv as jkv  # noqa: E402
 from repro.core.registry import make_optimizer as jmake  # noqa: E402
 from repro.data import synthetic as jsyn  # noqa: E402
+from repro.kernels import dispatch as jdispatch  # noqa: E402
 from repro.models import build_model as jbuild  # noqa: E402
 from repro.models import module as JM  # noqa: E402
 from repro.obs.events import validate_record as ref_validate  # noqa: E402
@@ -31,6 +36,7 @@ from repro.train.trainer import TrainerConfig as JTrainerConfig  # noqa
 from repro_torch.configs.registry import demo_lm  # noqa: E402
 from repro_torch.core.registry import make_optimizer  # noqa: E402
 from repro_torch.data import synthetic as tsyn  # noqa: E402
+from repro_torch.kernels import autotune, dispatch  # noqa: E402
 from repro_torch.models import module as M  # noqa: E402
 from repro_torch.models import simple  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
@@ -290,11 +296,17 @@ def test_trainer_entry_points_and_refusals(tmp_path):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             Trainer(model, opt, cap, cfg)
 
-    class Kernel:
-        impl = 'auto'
-        autotune_cache = 'tiles.json'
-    with pytest.raises(NotImplementedError, match='item 13'):
-        Trainer(model, opt, cap, cfg, kernel=Kernel(), device='cpu')
+    # a kernel config is accepted: its cache is installed at construction
+    cache = tmp_path / 'tiles.json'
+    key = dispatch.cache_key('rank1_update', 8, 16, torch.float32, 'cpu')
+    cache.write_text(json.dumps({'entries': {key: {'impl': 'torch'}}}))
+    try:
+        tr = Trainer(model, opt, cap, cfg, device='cpu',
+                     kernel=dispatch.KernelConfig(autotune_cache=str(cache)))
+        assert tr.kernel.impl == 'auto'
+        assert dispatch._cache()[key] == {'impl': 'torch'}
+    finally:
+        dispatch.reset_cache()
     # the exchange config is accepted (the multi-worker layers are ported);
     # fit_elastic needs a started process group
     from repro_torch.comm.exchange import ExchangeConfig
@@ -302,3 +314,52 @@ def test_trainer_entry_points_and_refusals(tmp_path):
     assert tr.comm == ExchangeConfig()
     with pytest.raises(RuntimeError, match='started group'):
         tr.fit_elastic(params, data)
+
+
+def test_kernel_config_runs_fit_and_records_its_choices(tmp_path):
+    """``Trainer(kernel=KernelConfig(impl='torch', autotune_cache=...))``:
+    every step record carries ``kernel_impl`` and ``kernel_tiles`` and
+    validates under both validators; the losses equal the ``kernel=None``
+    run's bit for bit and the reference's ``Trainer(kernel=KernelConfig(
+    impl='xla'))`` within rtol 1e-4."""
+    model, params, jp, data = _lm()
+    cache = autotune.tune([(128, 64)], device='cpu', bench=lambda fn: 1.0)
+    path = autotune.write(cache, tmp_path / 'tile_cache.json')
+    kernel = dispatch.KernelConfig(impl='torch', autotune_cache=str(path))
+    hists = {}
+    try:
+        for tag, kc in (('kernel', kernel), ('none', None)):
+            opt, cap = make_optimizer('eva', lr=0.05)
+            cfg = TrainerConfig(total_steps=4, log_every=1, ckpt_every=0,
+                                out_dir=str(tmp_path / tag))
+            _, _, hists[tag] = Trainer(model, opt, cap, cfg, kernel=kc,
+                                       device='cpu').fit(params, data,
+                                                         resume=False)
+        assert set(dispatch._cache()) >= set(cache['entries'])
+    finally:
+        dispatch.reset_cache()
+    assert hists['kernel'] == hists['none']
+    steps = [r for r in _check_records(tmp_path / 'kernel')
+             if r['event'] == 'step']
+    assert [r['step'] for r in steps] == [0, 1, 2, 3]
+    for r in steps:
+        assert r['kernel_impl'] == 'torch'
+        assert set(r['kernel_tiles']) == {'bilinear', 'rank1_update'}
+        assert all(v.startswith('torch 0x0 @ ')
+                   for v in r['kernel_tiles'].values())
+    assert not any('kernel_impl' in r for r in _records(tmp_path / 'none'))
+    jmodel = jbuild(jdemo_lm('small'))
+    jopt, jcap = jmake('eva', lr=0.05)
+    jcfg = JTrainerConfig(total_steps=4, log_every=1, ckpt_every=0,
+                          out_dir=str(tmp_path / 'ref'))
+    try:
+        _, _, jhist = JTrainer(
+            jmodel, jopt, jcap, jcfg,
+            kernel=jdispatch.KernelConfig(impl='xla')).fit(
+                jp, jsyn.LMStream(**STREAM), resume=False)
+    finally:
+        jdispatch.reset_cache()
+    np.testing.assert_allclose(hists['kernel'], jhist, rtol=RTOL, atol=1e-6)
+    jsteps = [r for r in _records(tmp_path / 'ref') if r['event'] == 'step']
+    assert [r['kernel_impl'] for r in jsteps] == ['xla'] * 4
+    assert set(jsteps[-1]['kernel_tiles']) >= {'bilinear', 'rank1_update'}
