@@ -200,6 +200,19 @@ Phases; any failure stops the run with a non-zero exit:
               as a process, started with 12a and waited for after 12b:
               exit 0, its file installs.  The launches of 12b's steps and
               of its tuner go into the kernel rows.
+13. costs   — the cost trace and the dry run.  13a: phase 11's profiled
+              run carries ``fns`` on its first ``profile`` record (grad,
+              precondition, apply; six fields each); the same one-shot
+              pass here on the card's tensors of one demo-100m step
+              launches no kernel and takes no card memory, its grad
+              phase's FLOPs equal the CPU trace's at the same shapes, and
+              its host seconds and ``live_buffer_mb`` beside
+              ``torch.cuda.memory_allocated()`` are printed.  13b, as a
+              process that sees no card, started before 13a:
+              ``python -m repro_torch.launch.dryrun --arch qwen2-0.5b
+              --shape decode_32k --mesh single`` (256 ranks of a 'fake'
+              group): every record field, and one rank's argument bytes
+              equal to the layout rules' count.
 
 Phases 1-11 run under the shipped ``kernels/tile_defaults.json``.  Phase 2
 checks that it moves no kernel off its plan (it names only 'cuda', at the
@@ -248,6 +261,9 @@ DEVICE_LAUNCHES = {'bilinear': (1.0, 1.0), 'rank1_update': (1.0, 1.0),
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 F32_FLOPS = 67e12                           # H100 SXM f32, no tensor cores
 STEPS = 20
+# steps of each torch.profiler breakdown (the trace costs about 0.45 ms of
+# host an event, a few hundred events a step)
+PROFILE_STEPS = 3
 # optimizer -> (lr of benchmarks/fig4_autoencoder.py, more options,
 # kernels launched once per layer and step composed, the same fused)
 MAIN_PATHS = {
@@ -354,7 +370,7 @@ BF16_DECODE_RATIO = 3.0
 # (623.1M parameters a layer, 622.3M in the embedding and the head)
 MOE_ARCH, MOE_DEPTH, MOE_PARAMS = 'qwen3-moe-30b-a3b', 4, 3_114_813_440
 MOE_BATCH, MOE_SEQ = 2, 2048
-MOE_TIME_ITERS, MOE_TIME_REPEATS = 2, 2
+MOE_TIME_ITERS, MOE_TIME_REPEATS = 2, 1
 # 9b: mamba2-780m whole, 4 x 2048 tokens a step: sequences of 2048 (8
 # chunks of 256), four of them; a step peaks near 24 GB on an H100
 MAMBA_BATCH, MAMBA_SEQ = 4, 2048
@@ -1435,27 +1451,36 @@ def _graph_ms(torch, fn, iters, warmup=5, repeats=3):
     return _time_ms(torch, graph.replay, iters, repeats, warmup=warmup)
 
 
-def _device_launches(torch, fn, calls, traces=3, tries=9):
+def _device_launches(torch, fn, calls, traces=5, tries=12):
     """Device kernels per wrapper call in one run of ``fn`` (``calls``
     wrapper calls), from the profiler: (all of them, the port's own).
     A trace can lose a kernel's event (CUPTI dropped one of eight bilinear
-    launches in one run on an H100), so a trace may count a launch short
-    but never one over: each count is the largest of ``traces`` traced
-    runs, which still sees every launch too many.  A trace that holds no
-    device event at all (CUPTI delivered none: seen once on an H100, three
-    traces in a row of a run whose kernels ran) is taken again, up to
-    ``tries`` traces in all; a run that launches nothing still counts 0."""
+    launches in one run on an H100, and in all three traces of one run),
+    so a trace may count a launch short but never one over: each count is
+    the largest of ``traces`` traced runs, which still sees every launch
+    too many; each trace opens with a spin kernel of its own, not counted,
+    ahead of ``fn``'s launches.  A trace that holds no device event of
+    ``fn`` (CUPTI delivered none: seen once on an H100, three traces in a
+    row of a run whose kernels ran) is taken again, up to ``tries`` traces
+    in all; a run that launches nothing still counts 0."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
+    spin = {e.key for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA}
     fn()
     torch.cuda.synchronize()
     every, port, seen = 0, 0, 0
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
             fn()
             torch.cuda.synchronize()
         events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA]
+                  if e.device_type == DeviceType.CUDA
+                  and e.key not in spin and 'spin' not in e.key]
         n = sum(e.count for e in events)
         if n == 0:
             print('  a trace held no device event; tracing again',
@@ -1871,7 +1896,8 @@ def _steps_and_profile(torch, model, params0, batches, variants, grads_only,
     print(json.dumps({f'{key}_step_ms': steps}))
     cuda = {k: v for k, v in variants.items() if k.endswith('_cuda_ms')}
     print(json.dumps({f'{key}_profile': _profile(
-        torch, model, params0, batches, steps, cuda, n=per_round)}))
+        torch, model, params0, batches, steps, cuda,
+        n=min(per_round, PROFILE_STEPS))}))
     return steps
 
 
@@ -3942,12 +3968,16 @@ def cli_phase(torch, rows):
     t1 = time.perf_counter()
     info['process_seconds'] = _cli_processes(work, profiled)
     t2 = time.perf_counter()
+    profile_recs = [r for r in map(json.loads,
+                                   profiled.read_text().splitlines())
+                    if r['event'] == 'profile']
     _add_counts(rows, counts, per_step)
     info['seconds'] = {'11a': t1 - t0, '11b_11c': t2 - t1, 'total': t2 - t0}
     print(json.dumps({'cli_checks': info}))
     print(f'  phase 11 took {t2 - t0:.1f} s (11a {t1 - t0:.1f} s, 11b and '
           f'11c together {t2 - t1:.1f} s)', flush=True)
     shutil.rmtree(work, ignore_errors=True)
+    return profile_recs
 
 
 # ---------------------------------------------------------------------------
@@ -4379,6 +4409,209 @@ def dispatch_phase(torch, rows):
     shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# 13. the cost trace and the dry run
+
+# the six fields of each phase's cost summary in a profile record's 'fns'
+COST_FIELDS = ('flops', 'traffic_bytes', 'collective_bytes',
+               'collective_count', 'blocking_collectives',
+               'dependent_dot_flop_frac')
+# 13b: one full-width cell of the dry run on the 256-rank (16, 16) mesh, in
+# a process of its own that sees no card
+DRYRUN_CELL = ('qwen2-0.5b', 'decode_32k')
+DRYRUN_TIMEOUT = 180
+DRYRUN_FIELDS = ('arch', 'shape', 'mesh', 'seq_len', 'global_batch', 'kind',
+                 'n_chips', 'params_total', 'params_active',
+                 'tokens_per_step', 'model_flops_total',
+                 'model_flops_per_chip', 'useful_flop_ratio', 'per_device',
+                 'roofline_s', 'dominant', 'collective_by_op',
+                 'collective_count', 'memory', 'lower_s', 'compile_s',
+                 'sharding_fallbacks')
+
+
+def _p13_dryrun_start(work):
+    """13b's process: ``python -m repro_torch.launch.dryrun`` on one cell,
+    its output under ``work``; started first, so that it runs beside 13a
+    on the host's other cores."""
+    arch, shape = DRYRUN_CELL
+    env = dict(os.environ, PYTHONPATH=str(SRC), CUDA_VISIBLE_DEVICES='',
+               OMP_NUM_THREADS='2')
+    log = open(work / 'dryrun.log', 'w')
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'repro_torch.launch.dryrun', '--arch', arch,
+         '--shape', shape, '--mesh', 'single', '--out', str(work / 'out'),
+         '--force'], cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    return proc, log, time.perf_counter()
+
+
+def _p13_costs(torch, profile_recs):
+    """13a: the profiled CLI run of phase 11 (Eva fused on demo_lm(100m))
+    carries the one-shot cost summaries; the same pass here on the card's
+    tensors of one step launches nothing, and its grad phase counts the
+    FLOPs that the same trace counts on the CPU at the same shapes."""
+    from repro_torch.configs.registry import demo_lm
+    from repro_torch.core.registry import make_optimizer
+    from repro_torch.kernels import launches
+    from repro_torch.launch import train as cli
+    from repro_torch.models import build_model
+    from repro_torch.models import module as M
+    from repro_torch.obs import spans
+    from repro_torch.train.step import init_opt_state, make_phased_step
+    fns = [r['fns'] for r in profile_recs if 'fns' in r]
+    require(len(fns) == 1 and 'fns' in profile_recs[0],
+            f'phase 11\'s profiled run: fns on {len(fns)} records, want the '
+            'first alone')
+    rec = fns[0]
+    require(set(rec) == {'grad', 'precondition', 'apply'}
+            and all(set(v) == set(COST_FIELDS) for v in rec.values()),
+            f'phase 11\'s fns {rec}')
+    require(all(math.isfinite(x) for v in rec.values() for x in v.values())
+            and rec['grad']['flops'] > 0 and rec['apply']['flops'] == 0,
+            f'phase 11\'s fns {rec}')
+    model = build_model(demo_lm('100m'))
+    opt, capture = make_optimizer('eva', lr=0.1, fused=True)
+    grad_fn, update_fn, apply_fn = make_phased_step(model, opt, capture,
+                                                    device='cuda')
+    params = cli.init_params(model, 'cuda')
+    # LMStream's int32 (16, 513) sequences: phase 12 frees its chain, and
+    # the costs depend on the shapes alone
+    gen = torch.Generator(device='cuda').manual_seed(13)
+    seqs = torch.randint(0, LM_STREAM['vocab'], (LM_STREAM['batch'],
+                         LM_STREAM['seq_len'] + 1), generator=gen,
+                         device='cuda', dtype=torch.int32)
+    batch = {'tokens': seqs[:, :-1].contiguous(),
+             'labels': seqs[:, 1:].contiguous()}
+    state = init_opt_state(model, opt, capture, params, batch, device='cuda')
+    loss, grads, stats = grad_fn(params, batch)
+    updates, _, _ = update_fn(grads, stats, loss, state, params)
+    torch.cuda.synchronize()
+    args = {'grad': (grad_fn, (params, batch)),
+            'precondition': (update_fn, (grads, stats, loss, state, params)),
+            'apply': (apply_fn, (params, updates))}
+    allocated = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    launches.reset()
+    t0 = time.perf_counter()
+    got = {name: spans.compiled_fn_costs(fn, *a)
+           for name, (fn, a) in args.items()}
+    pass_s = time.perf_counter() - t0
+    counts = launches.snapshot()
+    require(not any(counts.values()), f'the cost pass launched {counts}')
+    # fake tensors take no card memory: the peak never rises above the
+    # bytes allocated before the pass (Python may free some meanwhile)
+    require(torch.cuda.max_memory_allocated() <= allocated,
+            'the cost pass allocated on the card: peak '
+            f'{torch.cuda.max_memory_allocated()} over {allocated}')
+    # the grad phase on the CPU: meta stand-ins of the same shapes
+    cpu_grad = make_phased_step(model, opt, capture, device='cpu')[0]
+    meta = M.abstract_params(model.param_specs())
+    meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device='meta')
+                  for k, v in batch.items()}
+    t1 = time.perf_counter()
+    cpu = spans.hlo_costs(cpu_grad, meta, meta_batch)
+    cpu_s = time.perf_counter() - t1
+    require(got['grad']['flops'] == cpu['flops'] == rec['grad']['flops'],
+            f"grad FLOPs: card {got['grad']['flops']}, CPU {cpu['flops']}, "
+            f"phase 11's record {rec['grad']['flops']}")
+    same = {name: got[name] == rec[name] for name in rec}
+    live = spans.live_buffer_mb()
+    info = {'fns_phase11': rec, 'fns_card': got, 'grad_cpu': cpu,
+            'same_as_phase11': same, 'one_shot_pass_host_s': pass_s,
+            'grad_cpu_trace_host_s': cpu_s, 'live_buffer_mb': live,
+            'memory_allocated_mb': torch.cuda.memory_allocated() / 2 ** 20}
+    print(f'  13a: fns of phase 11\'s profiled run: {rec}', flush=True)
+    print(f'  13a: the one-shot pass here on the card\'s tensors: '
+          f'{pass_s:.2f} s of host, launches {counts}; grad FLOPs '
+          f"{got['grad']['flops']:.6g} = the CPU trace's {cpu['flops']:.6g} "
+          f'({cpu_s:.2f} s); the same as phase 11 per phase: {same}; '
+          f'live_buffer_mb {live} beside memory_allocated '
+          f'{torch.cuda.memory_allocated() / 2 ** 20:.3f} MiB', flush=True)
+    del params, batch, seqs, loss, state, grads, stats, updates, args
+    torch.cuda.empty_cache()
+    return info
+
+
+def _p13_dryrun_check(torch, proc, log, t0, work, allocated):
+    """13b: the dry-run cell exits 0 within DRYRUN_TIMEOUT with every
+    record field, 256 ranks, and one rank's argument bytes equal to the
+    sum over leaves of the shard bytes the layout rules give.  Its process
+    sees no card (``CUDA_VISIBLE_DEVICES`` empty), and this one's
+    allocated bytes are back at the phase's start (13a freed its step)."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_production_mesh
+    try:
+        rc = proc.wait(timeout=max(DRYRUN_TIMEOUT - (time.perf_counter()
+                                                     - t0), 1))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        fail(f'the dry-run cell still running after {DRYRUN_TIMEOUT} s')
+    finally:
+        log.close()
+    secs = time.perf_counter() - t0
+    out = Path(log.name).read_text()
+    require(rc == 0, f'dry run: exit code {rc}: {out[-3000:]}')
+    arch, shape_name = DRYRUN_CELL
+    rec = json.loads((work / 'out' / f'{arch}__{shape_name}__single.json')
+                     .read_text())
+    missing = [k for k in DRYRUN_FIELDS if k not in rec]
+    require(not missing, f'dry-run record lacks {missing}')
+    require(rec['n_chips'] == 256, f"n_chips {rec['n_chips']}")
+    shape = next(s for s in SHAPES if s.name == shape_name)
+    mesh = make_production_mesh()          # abstract: no group here
+    _, args, specs, *_ = dryrun.build_cell(get_config(arch), shape, mesh, [])
+    want = dryrun.argument_bytes(args, specs, mesh)
+    require(rec['memory']['argument_bytes'] == want,
+            f"argument_bytes {rec['memory']['argument_bytes']} != {want}")
+    require(torch.cuda.memory_allocated() <= allocated,
+            'phase 13 left card memory allocated: '
+            f'{torch.cuda.memory_allocated()} over {allocated}')
+    per = rec['per_device']
+    require(per['hlo_flops'] > 0 and per['hbm_traffic_bytes'] > 0,
+            f'dry-run costs {per}')
+    print(f'  13b: {arch} x {shape_name} x single, 256 ranks: exit 0 after '
+          f'{secs:.1f} s; flops {per["hlo_flops"]:.6g}, traffic '
+          f'{per["hbm_traffic_bytes"]:.6g} B, collectives '
+          f'{per["collective_bytes"]:.6g} B {rec["collective_by_op"]}, '
+          f'memory {rec["memory"]}, roofline {rec["roofline_s"]}, '
+          f'fallbacks {rec["sharding_fallbacks"]}; argument bytes = the '
+          f'layout rules\' {want}', flush=True)
+    return {'record': rec, 'seconds': secs}
+
+
+def costs_phase(torch, profile_recs):
+    """Phase 13: the profile record's cost summaries (13a) and one
+    full-width cell of the dry run (13b), the latter as a process beside
+    the former."""
+    import shutil
+    phase('13 the cost trace and the dry run: fns of the profiled CLI run '
+          f'on demo_lm(100m); {DRYRUN_CELL[0]} x {DRYRUN_CELL[1]} on the '
+          '256-rank mesh')
+    t0 = time.perf_counter()
+    work = ROOT / 'build' / 'smoke_dryrun'
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    allocated = torch.cuda.memory_allocated()
+    proc, log, t_start = _p13_dryrun_start(work)
+    try:
+        info = {'13a': _p13_costs(torch, profile_recs)}
+    except BaseException:
+        proc.kill()
+        proc.wait()
+        log.close()
+        raise
+    t1 = time.perf_counter()
+    info['13b'] = _p13_dryrun_check(torch, proc, log, t_start, work,
+                                    allocated)
+    t2 = time.perf_counter()
+    info['seconds'] = {'13a': t1 - t0, '13b_wait': t2 - t1, 'total': t2 - t0}
+    print(json.dumps({'cost_checks': info}))
+    print(f'  phase 13 took {t2 - t0:.1f} s (13a {t1 - t0:.1f} s, 13b '
+          f'{t2 - t1:.1f} s more)', flush=True)
+    shutil.rmtree(work, ignore_errors=True)
+
+
 def main() -> None:
     if not (SRC / 'repro_torch' / 'kernels' / 'csrc').is_dir():
         fail(f'no src/repro_torch beside {Path(__file__).name}: run it from '
@@ -4403,8 +4636,9 @@ def main() -> None:
     rest_phases(torch, rows, corpus, bare_step_ms)
     families_phase(torch, rows)
     multi_worker_phase(torch, rows)
-    cli_phase(torch, rows)
+    profile_recs = cli_phase(torch, rows)
     dispatch_phase(torch, rows)
+    costs_phase(torch, profile_recs)
     print(f'total {time.perf_counter() - t0:.1f} s after device check')
     print(json.dumps({'kernels': rows}))
     print(smi)

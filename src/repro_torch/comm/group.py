@@ -101,3 +101,13 @@ def in_scope(scope: Any) -> Iterator[DataScope]:
 def current() -> Optional[DataScope]:
     """The data group in scope, or None outside every scope."""
     return _CURRENT.get()
+
+
+def data_axes_in_scope() -> tuple[str, ...]:
+    """The reference's mesh axes the data group in scope stands for:
+    ``('pod', 'data')`` for a pod scope, ``('data',)`` for any other, ()
+    outside every scope."""
+    sc = current()
+    if sc is None:
+        return ()
+    return ('pod', 'data') if sc.pods is not None else ('data',)

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, fused, launch, launches
+from repro_torch.kernels import build, fused, launch, launches, ref
 
 _SIGNATURES = {
     'repro_bilinear': [build.P, build.I32, build.P, build.P, build.P,
@@ -46,6 +46,9 @@ def bilinear_and_norms_stacked(g: torch.Tensor, a: torch.Tensor,
     launch.  The norms feed Eq. 13's denominator; summed on the card in a
     fixed order, they are the same for an item alone or in a stack, as the
     dot is."""
+    if launch.is_fake_cuda(g):
+        return launch.fake_call('bilinear', ref.bilinear_and_norms_ref,
+                                g, a, b)
     index = launch.check_g(g, 3)
     L, d_in, d_out = g.shape
     if L < 1 or L > 65535:
@@ -72,8 +75,9 @@ def bilinear_and_norms_stacked(g: torch.Tensor, a: torch.Tensor,
 
 def bilinear_and_norms(g, a, b):
     """Unstacked form: g (d_in, d_out) -> dot () f32, sq (2,) f32."""
-    dot, sq = bilinear_and_norms_stacked(g[None], a[None], b[None])
-    return dot[0], sq[0]
+    dot, sq = bilinear_and_norms_stacked(g.unsqueeze(0), a.unsqueeze(0),
+                                         b.unsqueeze(0))
+    return dot.select(0, 0), sq.select(0, 0)
 
 
 def bilinear_stacked(g, a, b) -> torch.Tensor:

@@ -26,7 +26,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build, launch, launches
+from repro_torch.kernels import build, launch, launches, ref
 from repro_torch.kernels import matvec as _mv
 
 _SIGNATURES = {
@@ -94,6 +94,9 @@ def eva_fused_stacked(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
     eagerly, on the stream you capture on, with the shapes of a CUDA graph
     before capturing it.
     """
+    if launch.is_fake_cuda(g):
+        return launch.fake_call('eva_fused', ref.eva_fused_ref, g, a, b,
+                                gamma, m, mu, fold_momentum)
     index = launch.check_g(g, 3)
     L, d_in, d_out = g.shape
     if L < 1 or L > 65535:
@@ -128,6 +131,9 @@ def eva_f_fused_stacked(g: torch.Tensor, a: torch.Tensor, gamma: float,
     """Fused Eva-f (Eq. 21) + epilogue; the contract of
     :func:`eva_fused_stacked` without b, u = aᵀG taking its place.  Launch 1
     runs blocks of ``warps`` warps (None: ``matvec.matvec_plan``)."""
+    if launch.is_fake_cuda(g):
+        return launch.fake_call('eva_f_fused', ref.eva_f_fused_ref, g, a,
+                                gamma, m, mu, fold_momentum)
     index = launch.check_g(g, 3)
     L, d_in, d_out = g.shape
     if L < 1 or L > 65535:

@@ -30,12 +30,21 @@ pointers, so:
   * a graph replays with the workspace of the stream it was captured on,
     whatever stream it is replayed on: do not replay it while calls on that
     stream, or another graph captured there, run at the same time.
+
+A fake CUDA tensor (``FakeTensorMode``: a shape and a dtype, no memory) has
+no pointer to launch on.  The cost trace (``launch/hlo_analysis.py``) runs a
+step on such tensors; a wrapper that receives one hands it to
+:func:`fake_call`, which records one custom-call entry with each active
+trace and returns outputs of the right shape and dtype from the kernel's
+plain version, whose ops the trace does not count.  It launches nothing and
+counts no launch.  A real tensor never takes this path.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.kernels import build
 
@@ -43,6 +52,29 @@ F32, BF16 = torch.float32, torch.bfloat16
 
 # (library, C entry) per entry name, bound at first use
 _bound: dict[str, tuple[ctypes.CDLL, ctypes._CFuncPtr]] = {}
+# the active cost traces (launch/hlo_analysis.py registers itself)
+tracers: list = []
+
+
+def is_fake_cuda(g) -> bool:
+    """True for a fake CUDA tensor (the cost trace's operands)."""
+    return isinstance(g, FakeTensor) and g.is_cuda
+
+
+def fake_call(name: str, plain, *args):
+    """The outputs of kernel ``name`` on fake operands ``args``: ``plain``
+    (the kernel's plain version) computes them while every active trace
+    stops counting, then each records one custom call of ``name``."""
+    for t in tracers:
+        t.suspend()
+    try:
+        out = plain(*args)
+    finally:
+        for t in tracers:
+            t.resume()
+    for t in tracers:
+        t.custom_call(name, args, out)
+    return out
 
 
 def entry(lib_name: str, fn_name: str, signatures: dict[str, list]

@@ -17,7 +17,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, launch, launches
+from repro_torch.kernels import build, launch, launches, ref
 
 _SIGNATURES = {
     'repro_matvec': [build.P, build.I32, build.P, build.P, build.P,
@@ -88,6 +88,8 @@ def matvec_and_norm_stacked(g: torch.Tensor, a: torch.Tensor,
     from one launch of blocks of ``warps`` warps (None: ``matvec_plan``).
     The norm feeds Eq. 21's denominator; summed in a fixed order, it is the
     same for an item alone or in a stack, as u is."""
+    if launch.is_fake_cuda(g):
+        return launch.fake_call('matvec', ref.matvec_and_norm_ref, g, a)
     index = launch.check_g(g, 3)
     L, d_in, d_out = g.shape
     if L < 1 or L > 65535:
@@ -99,6 +101,8 @@ def matvec_and_norm(g: torch.Tensor, a: torch.Tensor,
                     warps: int | None = None
                     ) -> tuple[torch.Tensor, torch.Tensor]:
     """Unstacked form: g (d_in, d_out) -> u (d_out,) f32, asq () f32."""
+    if launch.is_fake_cuda(g):
+        return launch.fake_call('matvec', ref.matvec_and_norm_ref, g, a)
     index = launch.check_g(g, 2)
     d_in, d_out = g.shape
     return _launch(g, a, 1, d_in, d_out, (), index, warps)
@@ -157,6 +161,8 @@ def matvec_cols_stacked(g: torch.Tensor, a: torch.Tensor,
     (None: ``cols_plan``).  Each output is one f32 multiply-add chain over
     the band rows in order, so an item gives the same bits alone or in a
     stack, and under either tile."""
+    if launch.is_fake_cuda(g):
+        return launch.fake_call('matvec_cols', ref.matvec_cols_ref, g, a)
     index = launch.check_g(g, 3)
     L, m, n = g.shape
     if L < 1 or L > 65535:
@@ -187,4 +193,5 @@ def matvec_cols_stacked(g: torch.Tensor, a: torch.Tensor,
 
 def matvec_cols(g, a, config: int | None = None):
     """Unstacked form: g (m, n), a (R, m) -> (R, n) f32."""
-    return matvec_cols_stacked(g[None], a[None], config)[0]
+    return matvec_cols_stacked(g.unsqueeze(0), a.unsqueeze(0),
+                               config).select(0, 0)

@@ -14,7 +14,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels import build, launch, launches
+from repro_torch.kernels import build, launch, launches, ref
 
 _SIGNATURES = {
     'repro_rank1_update': [build.P, build.I32, build.P, build.P, build.P,
@@ -55,11 +55,20 @@ def _launch(g, a, b, coeff, scale, L: int, d_in: int, d_out: int, lead,
     return out
 
 
+def _plain(g, a, b, coeff, scale):
+    """The plain version, with the (…, 2) pairs split."""
+    if scale is None:
+        coeff, scale = coeff.select(-1, 0), coeff.select(-1, 1)
+    return ref.rank1_update_ref(g, a, b, coeff, scale)
+
+
 def rank1_update_stacked(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                          coeff: torch.Tensor,
                          scale: torch.Tensor | None = None) -> torch.Tensor:
     """P_l = scale_l · (G_l − coeff_l · a_l b_lᵀ), one launch.  coeff, scale:
     (L,) f32; or coeff the (L, 2) pairs and scale None."""
+    if launch.is_fake_cuda(g):
+        return launch.fake_call('rank1_update', _plain, g, a, b, coeff, scale)
     index = launch.check_g(g, 3)
     L, d_in, d_out = g.shape
     if L < 1 or L > 65535:
@@ -72,6 +81,8 @@ def rank1_update(g: torch.Tensor, a: torch.Tensor, b: torch.Tensor,
                  scale: torch.Tensor | None = None) -> torch.Tensor:
     """P = scale·(G − coeff·a bᵀ).  g: (d_in, d_out); coeff, scale: 0-d f32;
     or coeff the (2,) pair and scale None."""
+    if launch.is_fake_cuda(g):
+        return launch.fake_call('rank1_update', _plain, g, a, b, coeff, scale)
     index = launch.check_g(g, 2)
     d_in, d_out = g.shape
     return _launch(g, a, b, coeff, scale, 1, d_in, d_out, (), index)

@@ -18,6 +18,13 @@ def _as_f32(x, like: torch.Tensor) -> torch.Tensor:
     return torch.as_tensor(x, dtype=F32, device=like.device)
 
 
+def _mat(x: torch.Tensor) -> torch.Tensor:
+    """(...) -> (..., 1, 1).  Views are taken by method, not by indexing,
+    so the plain versions also run on fake CUDA tensors (the cost trace)
+    where PyTorch has no CUDA support."""
+    return x.unsqueeze(-1).unsqueeze(-1)
+
+
 def matvec_ref(g, a):
     """u = aᵀ G — contraction over d_in.  (..., d_in, d_out), (..., d_in)
     -> (..., d_out) f32."""
@@ -53,9 +60,9 @@ def rank1_update_ref(g, a, b, coeff, scale):
     """P = scale · (G − coeff · a bᵀ); coeff/scale scalar or (...,).
 
     Computed in f32; returns G's dtype."""
-    coeff = _as_f32(coeff, g)[..., None, None]
-    scale = _as_f32(scale, g)[..., None, None]
-    outer = a.to(F32)[..., :, None] * b.to(F32)[..., None, :]
+    coeff = _mat(_as_f32(coeff, g))
+    scale = _mat(_as_f32(scale, g))
+    outer = a.to(F32).unsqueeze(-1) * b.to(F32).unsqueeze(-2)
     return (scale * (g.to(F32) - coeff * outer)).to(g.dtype)
 
 
@@ -73,8 +80,8 @@ def eva_f_precondition_ref(g, a, gamma: float):
     u = matvec_ref(g, a)
     a32 = a.to(F32)
     denom = gamma + (a32 * a32).sum(-1)
-    outer = a32[..., :, None] * u[..., None, :]
-    return ((g.to(F32) - outer / denom[..., None, None]) / gamma).to(g.dtype)
+    outer = a32.unsqueeze(-1) * u.unsqueeze(-2)
+    return ((g.to(F32) - outer / _mat(denom)) / gamma).to(g.dtype)
 
 
 def _fused_epilogue(g32, p, m, mu, fold_momentum):
@@ -98,9 +105,10 @@ def eva_fused_ref(g, a, b, gamma: float, m, mu: float,
     a32, b32 = a.to(F32), b.to(F32)
     dot = bilinear_ref(g, a, b)
     denom = gamma + (a32 * a32).sum(-1) * (b32 * b32).sum(-1)
-    coeff = (dot / denom)[..., None, None]
+    coeff = _mat(dot / denom)
     # multiply by the reciprocal, as the kernel's scale operand does
-    p = (1.0 / gamma) * (g32 - coeff * (a32[..., :, None] * b32[..., None, :]))
+    outer = a32.unsqueeze(-1) * b32.unsqueeze(-2)
+    p = (1.0 / gamma) * (g32 - coeff * outer)
     return _fused_epilogue(g32, p, m, mu, fold_momentum)
 
 
@@ -111,6 +119,7 @@ def eva_f_fused_ref(g, a, gamma: float, m, mu: float,
     g32 = g.to(F32)
     a32 = a.to(F32)
     u = matvec_ref(g, a)
-    coeff = (1.0 / (gamma + (a32 * a32).sum(-1)))[..., None, None]
-    p = (1.0 / gamma) * (g32 - coeff * (a32[..., :, None] * u[..., None, :]))
+    coeff = _mat(1.0 / (gamma + (a32 * a32).sum(-1)))
+    outer = a32.unsqueeze(-1) * u.unsqueeze(-2)
+    p = (1.0 / gamma) * (g32 - coeff * outer)
     return _fused_epilogue(g32, p, m, mu, fold_momentum)

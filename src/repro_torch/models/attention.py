@@ -3,10 +3,10 @@ and chunked (online-softmax) paths, flash (``models/flash.py``) and the
 KV-cache decode.  KV heads are never repeated: queries are grouped ``(B, S,
 KV, G, Dh)`` and contracted against the un-repeated K/V.
 
-The reference's head sharding (``_shard_heads``) is the identity on one
-device and is not ported.  A cache passed in is never written: each write
-returns a new cache tensor (``index_copy`` out of place), as
-``lax.dynamic_update_slice`` does.
+``_shard_heads`` lays q, k and v out with the heads over the model axis
+(the identity without a mesh in scope).  A cache passed in is never
+written: each write returns a new cache tensor (``index_copy`` out of
+place), as ``lax.dynamic_update_slice`` does.
 """
 from __future__ import annotations
 
@@ -17,19 +17,31 @@ import torch
 
 from repro_torch.models.flash import flash_attention
 from repro_torch.models.layers import apply_rope, linear, linear_spec
+from repro_torch.sharding.constraints import constrain
 
 F32 = torch.float32
 NEG_INF = -1e30
+
+
+def _shard_heads(x: torch.Tensor) -> torch.Tensor:
+    """(B, S, H, Dh): batch -> data axes, heads -> model when divisible,
+    head_dim never sharded (a sharded contraction dim would all-reduce
+    every attention score tile)."""
+    return constrain(x, 'data', None, 'model', None)
 
 
 def attention_spec(d_model: int, n_heads: int, n_kv_heads: int,
                    head_dim: int, dtype=torch.float32,
                    qkv_bias: bool = False) -> dict:
     return {
-        'q': linear_spec(d_model, n_heads * head_dim, qkv_bias, dtype),
-        'k': linear_spec(d_model, n_kv_heads * head_dim, qkv_bias, dtype),
-        'v': linear_spec(d_model, n_kv_heads * head_dim, qkv_bias, dtype),
-        'o': linear_spec(n_heads * head_dim, d_model, False, dtype),
+        'q': linear_spec(d_model, n_heads * head_dim, qkv_bias, dtype,
+                         ('embed', 'heads')),
+        'k': linear_spec(d_model, n_kv_heads * head_dim, qkv_bias, dtype,
+                         ('embed', 'kv_heads')),
+        'v': linear_spec(d_model, n_kv_heads * head_dim, qkv_bias, dtype,
+                         ('embed', 'kv_heads')),
+        'o': linear_spec(n_heads * head_dim, d_model, False, dtype,
+                         ('heads', 'embed')),
     }
 
 
@@ -167,6 +179,7 @@ def attention_block(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
     q = q.reshape(b, x.shape[1], n_heads, head_dim)
     if rope:
         q = apply_rope(q, positions, rope_theta)
+    q = _shard_heads(q)
 
     if is_cross:
         if cache is not None and not cross_prefill:
@@ -179,8 +192,10 @@ def attention_block(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
                                  'train/prefill')
             k = linear(p, kv_x, path=f'{path}/k', **kw)
             v = linear(p, kv_x, path=f'{path}/v', **kw)
-            k = k.reshape(b, kv_x.shape[1], n_kv_heads, head_dim)
-            v = v.reshape(b, kv_x.shape[1], n_kv_heads, head_dim)
+            k = _shard_heads(k.reshape(b, kv_x.shape[1], n_kv_heads,
+                                       head_dim))
+            v = _shard_heads(v.reshape(b, kv_x.shape[1], n_kv_heads,
+                                       head_dim))
             new_cache = None
             if cache is not None:  # cross prefill: populate the cache
                 new_cache = {'k': _cache_write(cache['k'], k, 0),
@@ -189,8 +204,8 @@ def attention_block(p, x, *, n_heads: int, n_kv_heads: int, head_dim: int,
     else:
         k = linear(p, x, path=f'{path}/k', **kw)
         v = linear(p, x, path=f'{path}/v', **kw)
-        k = k.reshape(b, x.shape[1], n_kv_heads, head_dim)
-        v = v.reshape(b, x.shape[1], n_kv_heads, head_dim)
+        k = _shard_heads(k.reshape(b, x.shape[1], n_kv_heads, head_dim))
+        v = _shard_heads(v.reshape(b, x.shape[1], n_kv_heads, head_dim))
         decode = cache is not None and q.shape[1] == 1
         if rope:
             k_pos = _full_positions(b, cache_pos, x.device) if decode \

@@ -27,6 +27,7 @@ from repro_torch.models.layers import (embed, embed_spec, gelu_mlp,
 from repro_torch.models.mamba_lm import stack_caches, unstack_cache
 from repro_torch.models.transformer import (_stack_stats, _unstack,
                                             cross_entropy, remat_call)
+from repro_torch.sharding.constraints import shard_activations
 
 
 class EncDecLM:
@@ -69,7 +70,8 @@ class EncDecLM:
             'enc_norm_f': norm_spec(cfg.d_model, cfg.pdtype),
             'dec_blocks': M.stack_specs(self._dec_block_spec(), self.n_dec),
             'dec_norm_f': norm_spec(cfg.d_model, cfg.pdtype),
-            'lm_head': linear_spec(cfg.d_model, cfg.vocab, dtype=cfg.pdtype),
+            'lm_head': linear_spec(cfg.d_model, cfg.vocab, dtype=cfg.pdtype,
+                                   axes=('embed', 'vocab')),
         }
 
     def precon_paths(self) -> set[str]:
@@ -98,6 +100,7 @@ class EncDecLM:
                  and torch.is_grad_enabled())
         cols, new_caches = [], []
         for p, bt, bc in zip(layers, layer_taps, caches):
+            x = shard_activations(x)
             bcol: dict = {}
             if remat:
                 def run(h, sink, p=p, bt=bt):
@@ -203,10 +206,12 @@ class EncDecLM:
             {'stats': col, 'n_tokens': n}
 
     def init_cache(self, batch_size: int, max_seq: int, device='cuda',
-                   enc_len: Optional[int] = None):
+                   enc_len: Optional[int] = None, abstract: bool = False):
+        """Zero caches; ``abstract``: meta tensors (shapes and dtypes, the
+        dry run's stand-ins) whatever ``device``."""
         cfg = self.cfg
         enc_len = enc_len if enc_len is not None else max_seq * cfg.dec_ratio
-        dev = resolve_device(device)
+        dev = torch.device('meta') if abstract else resolve_device(device)
         cdt = torch_dtype(cfg.cache_dtype)
 
         def kv(seq):

@@ -31,6 +31,7 @@ from repro_torch.models.moe import moe_apply, moe_spec
 from repro_torch.models.ssm import mamba_block, mamba_spec, ssm_dims
 from repro_torch.models.transformer import (_stack_stats, _unstack,
                                             cross_entropy, remat_call)
+from repro_torch.sharding.constraints import shard_activations
 
 F32 = torch.float32
 
@@ -86,7 +87,8 @@ class JambaLM:
         }
         if not cfg.tie_embeddings:
             specs['lm_head'] = linear_spec(cfg.d_model, cfg.vocab,
-                                           dtype=cfg.pdtype)
+                                           dtype=cfg.pdtype,
+                                           axes=('embed', 'vocab'))
         return specs
 
     def precon_paths(self) -> set[str]:
@@ -173,6 +175,7 @@ class JambaLM:
                  and torch.is_grad_enabled())
         cols, new_caches, auxs = [], [], []
         for p, bt, bc in zip(blocks, block_taps, block_caches):
+            x = shard_activations(x)
             bcol: dict = {}
             if remat:
                 def run(h, sink, p=p, bt=bt):
@@ -218,12 +221,15 @@ class JambaLM:
         return cross_entropy(logits, batch['labels']) + aux, \
             {'stats': col, 'n_tokens': b * s}
 
-    def init_cache(self, batch_size: int, max_seq: int, device='cuda'):
+    def init_cache(self, batch_size: int, max_seq: int, device='cuda',
+                   abstract: bool = False):
+        """Zero caches; ``abstract``: meta tensors (shapes and dtypes, the
+        dry run's stand-ins) whatever ``device``."""
         cfg = self.cfg
         _, nheads, conv_ch = ssm_dims(cfg.d_model, cfg.ssm_expand,
                                       cfg.ssm_headdim, cfg.ssm_state,
                                       cfg.ssm_conv)
-        dev = resolve_device(device)
+        dev = torch.device('meta') if abstract else resolve_device(device)
         cdt = torch_dtype(cfg.cache_dtype)
         n, b = self.n_super, batch_size
 

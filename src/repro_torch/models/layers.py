@@ -28,10 +28,14 @@ F32 = torch.float32
 
 
 def linear_spec(d_in: int, d_out: int, bias: bool = False,
-                dtype=torch.float32) -> dict:
-    spec = {'w': ParamSpec((d_in, d_out), dtype, init='scaled')}
+                dtype=torch.float32,
+                axes: tuple[Optional[str], Optional[str]] = (None, None),
+                bias_axis: Optional[str] = None) -> dict:
+    spec = {'w': ParamSpec((d_in, d_out), dtype, init='scaled', axes=axes)}
     if bias:
-        spec['b'] = ParamSpec((d_out,), dtype, init='zeros')
+        spec['b'] = ParamSpec((d_out,), dtype, init='zeros',
+                              axes=(bias_axis if bias_axis is not None
+                                    else axes[1],))
     return spec
 
 
@@ -62,7 +66,7 @@ def linear(params: dict, x: torch.Tensor, *, path: str, col: dict,
 
 
 def rmsnorm_spec(d: int, dtype=torch.float32) -> dict:
-    return {'scale': ParamSpec((d,), dtype, init='ones')}
+    return {'scale': ParamSpec((d,), dtype, init='ones', axes=('embed',))}
 
 
 def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -73,8 +77,8 @@ def rmsnorm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 
 
 def layernorm_spec(d: int, dtype=torch.float32) -> dict:
-    return {'scale': ParamSpec((d,), dtype, init='ones'),
-            'bias': ParamSpec((d,), dtype, init='zeros')}
+    return {'scale': ParamSpec((d,), dtype, init='ones', axes=('embed',)),
+            'bias': ParamSpec((d,), dtype, init='zeros', axes=('embed',))}
 
 
 def layernorm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -98,7 +102,8 @@ def make_norm(kind: str):
 
 
 def embed_spec(vocab: int, d: int, dtype=torch.float32) -> dict:
-    return {'table': ParamSpec((vocab, d), dtype, init='normal', scale=0.02)}
+    return {'table': ParamSpec((vocab, d), dtype, init='normal', scale=0.02,
+                               axes=('vocab', 'embed'))}
 
 
 def embed(p: dict, ids: torch.Tensor, compute_dtype=None) -> torch.Tensor:
@@ -151,9 +156,9 @@ def sinusoidal_positions(seq: int, d: int, device=None) -> torch.Tensor:
 def mlp_spec(d: int, d_ff: int, dtype=torch.float32,
              bias: bool = False) -> dict:
     return {
-        'gate': linear_spec(d, d_ff, bias, dtype),
-        'up': linear_spec(d, d_ff, bias, dtype),
-        'down': linear_spec(d_ff, d, bias, dtype),
+        'gate': linear_spec(d, d_ff, bias, dtype, ('embed', 'mlp')),
+        'up': linear_spec(d, d_ff, bias, dtype, ('embed', 'mlp')),
+        'down': linear_spec(d_ff, d, bias, dtype, ('mlp', 'embed')),
     }
 
 
@@ -169,8 +174,8 @@ def gelu_mlp_spec(d: int, d_ff: int, dtype=torch.float32,
                   bias: bool = True) -> dict:
     """Whisper-style 2-layer GELU MLP."""
     return {
-        'fc1': linear_spec(d, d_ff, bias, dtype),
-        'fc2': linear_spec(d_ff, d, bias, dtype),
+        'fc1': linear_spec(d, d_ff, bias, dtype, ('embed', 'mlp')),
+        'fc2': linear_spec(d_ff, d, bias, dtype, ('mlp', 'embed')),
     }
 
 

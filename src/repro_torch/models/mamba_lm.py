@@ -16,6 +16,7 @@ from repro_torch.models.layers import (embed, embed_spec, linear, linear_spec,
 from repro_torch.models.ssm import mamba_block, mamba_spec, ssm_dims
 from repro_torch.models.transformer import (_stack_stats, _unstack,
                                             cross_entropy, remat_call)
+from repro_torch.sharding.constraints import shard_activations
 
 
 def stack_caches(caches: list[dict]) -> dict:
@@ -59,7 +60,8 @@ class MambaLM:
         }
         if not cfg.tie_embeddings:
             specs['lm_head'] = linear_spec(cfg.d_model, cfg.vocab,
-                                           dtype=cfg.pdtype)
+                                           dtype=cfg.pdtype,
+                                           axes=('embed', 'vocab'))
         return specs
 
     def precon_paths(self) -> set[str]:
@@ -89,6 +91,7 @@ class MambaLM:
                  and torch.is_grad_enabled())
         cols, new_caches = [], []
         for p, bt, bc in zip(layers, layer_taps, layer_caches):
+            x = shard_activations(x)
             bcol: dict = {}
             if remat:
                 def run(h, sink, p=p, bt=bt):
@@ -125,14 +128,16 @@ class MambaLM:
         return cross_entropy(logits, batch['labels']), \
             {'stats': col, 'n_tokens': b * s}
 
-    def init_cache(self, batch_size: int, max_seq: int, device='cuda'):
-        """The SSM cache is O(1) in context length: ``max_seq`` is not
-        used."""
+    def init_cache(self, batch_size: int, max_seq: int, device='cuda',
+                   abstract: bool = False):
+        """Zero caches, O(1) in context length (``max_seq`` is not used);
+        ``abstract``: meta tensors (the dry run's stand-ins) whatever
+        ``device``."""
         cfg = self.cfg
         _, nheads, conv_ch = ssm_dims(cfg.d_model, cfg.ssm_expand,
                                       cfg.ssm_headdim, cfg.ssm_state,
                                       cfg.ssm_conv)
-        dev = resolve_device(device)
+        dev = torch.device('meta') if abstract else resolve_device(device)
         n, b = cfg.n_layers, batch_size
         return {'blocks': {
             'conv': torch.zeros((n, b, cfg.ssm_conv - 1, conv_ch),

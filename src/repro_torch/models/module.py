@@ -5,7 +5,9 @@ Parameters are flat dicts of tensors keyed by the reference's paths
 (``'fc0/w'``, ``'blocks/attn/q/w'``), in the reference's (d_in, d_out)
 weight layout.  Weights come from an explicit ``torch.Generator``
 (``init_params``) or, to compare with the reference, from its own
-``init_params`` output as numpy (``params_from_numpy``).
+``init_params`` output as numpy (``params_from_numpy``).  ``abstract_params``
+gives meta tensors (shape and dtype, no storage) for the dry run, and each
+spec's logical axes feed the layout resolver (``repro_torch.sharding``).
 """
 from __future__ import annotations
 
@@ -22,12 +24,23 @@ from repro_torch.device import resolve_device
 
 @dataclasses.dataclass(frozen=True)
 class ParamSpec:
-    """Shape, dtype, initializer and stddev override of one parameter.  The
-    reference's logical sharding axes are not ported."""
+    """Shape, dtype, initializer, stddev override and logical axes of one
+    parameter.  ``axes`` names one logical axis (or None) per dim, as the
+    reference's ParamSpec does; () stands for no name on any dim."""
     shape: tuple[int, ...]
     dtype: Any = torch.float32
     init: str = 'scaled'          # scaled | normal | zeros | ones
     scale: Optional[float] = None  # stddev override
+    axes: tuple[Optional[str], ...] = ()
+
+    def __post_init__(self):
+        if self.axes and len(self.axes) != len(self.shape):
+            raise ValueError(f'axes {self.axes} do not match shape '
+                             f'{self.shape}')
+
+    @property
+    def logical_axes(self) -> tuple[Optional[str], ...]:
+        return self.axes or (None,) * len(self.shape)
 
 
 def is_spec(x) -> bool:
@@ -53,11 +66,21 @@ def flatten_specs(specs: Any, prefix: str = '') -> dict[str, Any]:
     return out
 
 
-def stack_specs(specs: Any, n: int) -> Any:
-    """Add a leading stacked dim of ``n`` (the layer stack)."""
+def stack_specs(specs: Any, n: int, axis_name: str = 'layer') -> Any:
+    """Add a leading stacked dim of ``n`` (the layer stack), named
+    ``axis_name``."""
     if isinstance(specs, dict):
-        return {k: stack_specs(v, n) for k, v in specs.items()}
-    return dataclasses.replace(specs, shape=(n,) + tuple(specs.shape))
+        return {k: stack_specs(v, n, axis_name) for k, v in specs.items()}
+    return dataclasses.replace(specs, shape=(n,) + tuple(specs.shape),
+                               axes=(axis_name,) + specs.logical_axes)
+
+
+def abstract_params(specs: Any) -> dict[str, torch.Tensor]:
+    """Flat ``{path: tensor}`` of meta tensors: each leaf's shape and dtype,
+    no storage (the reference's ShapeDtypeStructs)."""
+    flat = flatten_specs(specs)
+    return {p: torch.empty(flat[p].shape, dtype=flat[p].dtype,
+                           device='meta') for p in sorted(flat)}
 
 
 def count_params(specs: Any) -> int:

@@ -12,10 +12,13 @@ masked per-expert input means (``kv.fwd_stats_masked``), so the rank-one
 preconditioner treats each expert as an item of its own.  The router is an
 ordinary preconditioned linear.
 
-On one device the reference routes in one group (its ``_n_data_shards()``
-is 1 outside a mesh, and ``constrain`` is the identity), so the group axis
-is not carried here; the group-local dispatch of expert parallelism waits
-for a ``('data', 'model')`` layout (ROADMAP.md §1 item 13).
+Dispatch is group-local: tokens are routed within their data shard's group
+(G = the product of the mesh's 'pod' and 'data' axes, 1 without a mesh;
+per-group capacity), so the dispatch and combine gathers stay on the shard
+and only the (E, G, C, D) slot tensor moves from token-major (G over the
+data axes) to expert-major (E over 'model'): an all-to-all of slot volume.
+The ``constrain`` calls lay those tensors out on a DeviceMesh and are the
+identity without one.  At G = 1 the ops are the single-group ones.
 """
 from __future__ import annotations
 
@@ -27,18 +30,19 @@ import torch.nn.functional as F
 from repro_torch.core import kv as kvlib
 from repro_torch.models.layers import linear, linear_spec
 from repro_torch.models.module import ParamSpec
+from repro_torch.sharding.constraints import _current_mesh, constrain
 
 F32 = torch.float32
 
 
 def moe_spec(d: int, d_ff: int, n_experts: int, dtype=torch.float32) -> dict:
-    def w(shape):
-        return {'w': ParamSpec(shape, dtype, init='scaled')}
+    def w(shape, axes):
+        return {'w': ParamSpec(shape, dtype, init='scaled', axes=axes)}
     return {
-        'router': linear_spec(d, n_experts, False, dtype),
-        'gate': w((n_experts, d, d_ff)),
-        'up': w((n_experts, d, d_ff)),
-        'down': w((n_experts, d_ff, d)),
+        'router': linear_spec(d, n_experts, False, dtype, ('embed', None)),
+        'gate': w((n_experts, d, d_ff), ('expert', 'embed', 'mlp')),
+        'up': w((n_experts, d, d_ff), ('expert', 'embed', 'mlp')),
+        'down': w((n_experts, d_ff, d), ('expert', 'mlp', 'embed')),
     }
 
 
@@ -48,45 +52,66 @@ def capacity(n_tokens: int, top_k: int, n_experts: int, factor: float) -> int:
 
 
 def _expert_linear(w, x, *, wpath: str, col, taps, capture, mask):
-    """x: (E, C, d_in) @ w: (E, d_in, d_out) with per-expert stats and
-    taps; mask: (E, C) slot validity."""
+    """x: (E, G, C, d_in) @ w: (E, d_in, d_out) with per-expert stats and
+    taps; mask: (E, G, C) slot validity."""
+    e, g, c = x.shape[:3]
+    xf = x.reshape(e, g * c, x.shape[-1])
     if capture is not None and capture.a is not None:
-        col[wpath] = kvlib.fwd_stats_masked(x, mask, capture)
-    y = torch.bmm(x, w)
+        col[wpath] = kvlib.fwd_stats_masked(xf, mask.reshape(e, g * c),
+                                            capture)
+    y = torch.bmm(xf, w)
     if taps is not None and wpath in taps:
         y = y + taps[wpath][:, None, :].to(y.dtype)
-    return y
+    return y.reshape(e, g, c, y.shape[-1])
+
+
+def _n_data_shards() -> int:
+    """Product of the 'pod' and 'data' axes of the mesh in scope (1
+    outside a mesh, and inside a data group in scope)."""
+    from repro_torch.sharding import compat
+    shape = compat.mesh_shape(_current_mesh())
+    n = 1
+    for a in ('pod', 'data'):
+        n *= shape.get(a, 1)
+    return n
 
 
 def route(flat_e: torch.Tensor, n_experts: int, top_k: int, cap: int):
-    """Slot assignment from the (T·k,) expert ids, token-major.
+    """Slot assignment from the (..., T·k) expert ids, token-major, one
+    group per leading index (none for 1-D ids).
 
-    Returns ``(slot_token (E, C), slot_mask (E, C) f32, flat_slot (T·k,),
-    ok (T·k,) bool)``: the token in each slot, whether the slot holds one,
-    each assignment's slot in the flattened (E·C) buffer, and whether the
-    assignment fit.  An assignment past its expert's capacity is written to
-    column ``cap``, which is sliced off."""
-    n = flat_e.shape[0]
+    Returns ``(slot_token (..., E, C), slot_mask (..., E, C) f32,
+    flat_slot (..., T·k), ok (..., T·k) bool)``: the token in each slot,
+    whether the slot holds one, each assignment's slot in its group's
+    flattened (E·C) buffer, and whether the assignment fit.  An assignment
+    past its expert's capacity is written to column ``cap``, which is
+    sliced off.  Fixed-shape integer ops only, so the tables trace on fake
+    tensors and lay out on a DeviceMesh."""
+    lead = flat_e.shape[:-1]
+    n = flat_e.shape[-1]
+    flat_e = flat_e.long().reshape(-1, n)
+    g = flat_e.shape[0]
     dev = flat_e.device
-    flat_e = flat_e.long()
-    sort_idx = torch.argsort(flat_e, stable=True)
-    counts = torch.bincount(flat_e, minlength=n_experts)
-    seg_start = torch.cumsum(counts, 0) - counts
-    inv_rank = torch.empty(n, dtype=torch.long, device=dev)
-    inv_rank[sort_idx] = torch.arange(n, device=dev)
-    pos = inv_rank - seg_start[flat_e]
+    sort_idx = torch.argsort(flat_e, dim=-1, stable=True)
+    counts = torch.zeros(g, n_experts, dtype=torch.long, device=dev) \
+        .scatter_add(1, flat_e, torch.ones_like(flat_e))
+    seg_start = torch.cumsum(counts, -1) - counts
+    ranks = torch.arange(n, device=dev).expand(g, n)
+    inv_rank = torch.zeros_like(flat_e).scatter(1, sort_idx, ranks)
+    pos = inv_rank - seg_start.gather(1, flat_e)
     ok = pos < cap
     safe_pos = torch.where(ok, pos, cap)
-    token = torch.arange(n, device=dev) // top_k
     cell = flat_e * (cap + 1) + safe_pos
-    slot_token = torch.zeros(n_experts * (cap + 1), dtype=torch.long,
-                             device=dev).index_put((cell,), token)
-    slot_mask = torch.zeros(n_experts * (cap + 1), dtype=F32,
-                            device=dev).index_put((cell,), ok.to(F32))
-    slot_token = slot_token.reshape(n_experts, cap + 1)[:, :cap]
-    slot_mask = slot_mask.reshape(n_experts, cap + 1)[:, :cap]
+    slot_token = torch.zeros(g, n_experts * (cap + 1), dtype=torch.long,
+                             device=dev).scatter(1, cell, ranks // top_k)
+    slot_mask = torch.zeros(g, n_experts * (cap + 1), dtype=F32,
+                            device=dev).scatter(1, cell, ok.to(F32))
+    slot_token = slot_token.reshape(g, n_experts, cap + 1)[..., :cap]
+    slot_mask = slot_mask.reshape(g, n_experts, cap + 1)[..., :cap]
     flat_slot = flat_e * cap + torch.clamp(pos, max=cap - 1)
-    return slot_token, slot_mask, flat_slot, ok
+    return (slot_token.reshape(lead + (n_experts, cap)),
+            slot_mask.reshape(lead + (n_experts, cap)),
+            flat_slot.reshape(lead + (n,)), ok.reshape(lead + (n,)))
 
 
 def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
@@ -117,13 +142,28 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     else:
         aux = torch.zeros((), dtype=F32, device=x.device)
 
-    cap = capacity(t, top_k, n_experts, capacity_factor)
+    # group-local sort-based dispatch: G groups of T_l tokens, per-group
+    # capacity; only int index tables go through scatters
+    groups = _n_data_shards()
+    if t % groups or (t // groups) < top_k:
+        groups = 1
+    tg = t // groups
+    cap = capacity(tg, top_k, n_experts, capacity_factor)
     slot_token, slot_mask, flat_slot, ok = route(
-        expert_ids.reshape(-1), n_experts, top_k, cap)
+        expert_ids.reshape(groups, tg * top_k), n_experts, top_k, cap)
+    slot_mask = slot_mask.movedim(0, 1)                            # (E,G,C)
 
     xd = xt.to(compute_dtype) if compute_dtype is not None else xt
-    disp = xd[slot_token] * slot_mask[..., None].to(xd.dtype)      # (E,C,D)
+    xg = constrain(xd.reshape(groups, tg, d), 'data', None, None)
+    if groups == 1:
+        disp = xg[0][slot_token[0]][:, None]                       # (E,1,C,D)
+    else:
+        gi = torch.arange(groups, device=x.device)[:, None, None]
+        disp = xg[gi, slot_token].movedim(0, 1)                    # (E,G,C,D)
+    disp = disp * slot_mask[..., None].to(xd.dtype)
+    disp = constrain(disp, 'model', 'data', None, None)
 
+    # expert FFN (E: expert parallelism, G: data parallelism)
     def wd(name):
         w = p[f'{path}/{name}/w']
         return w.to(compute_dtype) if compute_dtype is not None else w
@@ -132,9 +172,18 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     u = _expert_linear(wd('up'), disp, wpath=f'{path}/up/w', **kw)
     h = F.silu(g) * u
     out_e = _expert_linear(wd('down'), h, wpath=f'{path}/down/w', **kw)
+    out_e = constrain(out_e, 'model', 'data', None, None)
 
-    # combine: gather each assignment's slot, weighted top-k sum in f32
+    # combine: gather each assignment's slot in its group, weighted top-k
+    # sum in f32, all group-local
+    out_g = out_e.movedim(1, 0).reshape(groups, n_experts * cap, d)
+    out_g = constrain(out_g, 'data', None, None)
     w_tk = (gate_vals * ok.reshape(t, top_k)).to(F32)
-    y_tk = out_e.reshape(n_experts * cap, d)[flat_slot].reshape(t, top_k, d)
-    y = torch.einsum('tkd,tk->td', y_tk.to(F32), w_tk)
+    if groups == 1:
+        y_tk = out_g[0][flat_slot[0]]
+    else:
+        y_tk = out_g[torch.arange(groups, device=x.device)[:, None],
+                     flat_slot]
+    y = torch.einsum('tkd,tk->td', y_tk.reshape(t, top_k, d).to(F32), w_tk)
+    y = constrain(y.reshape(groups, tg, d), 'data', None, None)
     return y.reshape(b, s, d).to(x.dtype), aux

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.layers import linear, linear_spec, rmsnorm
 from repro_torch.models.module import ParamSpec
+from repro_torch.sharding.constraints import constrain
 
 F32 = torch.float32
 
@@ -41,14 +42,22 @@ def mamba_spec(d_model: int, *, expand: int = 2, headdim: int = 64,
                                         d_conv)
     d_in_proj = 2 * d_inner + 2 * d_state + nheads  # z, x, B, C, dt
     return {
-        'in_proj': linear_spec(d_model, d_in_proj, False, dtype),
-        'conv_w': ParamSpec((d_conv, conv_ch), dtype, init='scaled'),
-        'conv_b': ParamSpec((conv_ch,), dtype, init='zeros'),
-        'A_log': ParamSpec((nheads,), torch.float32, init='ones'),
-        'dt_bias': ParamSpec((nheads,), torch.float32, init='zeros'),
-        'D': ParamSpec((nheads,), torch.float32, init='ones'),
-        'norm': {'scale': ParamSpec((d_inner,), dtype, init='ones')},
-        'out_proj': linear_spec(d_inner, d_model, False, dtype),
+        'in_proj': linear_spec(d_model, d_in_proj, False, dtype,
+                               ('embed', 'inner')),
+        'conv_w': ParamSpec((d_conv, conv_ch), dtype, init='scaled',
+                            axes=(None, 'inner')),
+        'conv_b': ParamSpec((conv_ch,), dtype, init='zeros',
+                            axes=('inner',)),
+        'A_log': ParamSpec((nheads,), torch.float32, init='ones',
+                           axes=('heads',)),
+        'dt_bias': ParamSpec((nheads,), torch.float32, init='zeros',
+                             axes=('heads',)),
+        'D': ParamSpec((nheads,), torch.float32, init='ones',
+                       axes=('heads',)),
+        'norm': {'scale': ParamSpec((d_inner,), dtype, init='ones',
+                                    axes=('inner',))},
+        'out_proj': linear_spec(d_inner, d_model, False, dtype,
+                                ('inner', 'embed')),
     }
 
 
@@ -158,8 +167,12 @@ def mamba_block(p, x, *, headdim: int = 64, d_state: int = 128,
 
     xs, bmat, cmat = torch.split(xbc, [d_inner, d_state, d_state], dim=-1)
     xh = xs.reshape(bsz, s, nheads, headdim)
+    # the SSD heads are a batch dim of the chunk products: pin them to the
+    # model axis so those products shard instead of replicating
+    xh = constrain(xh, 'data', None, 'model', None)
     a = -torch.exp(p[f'{path}/A_log'].to(F32))
     dt = F.softplus(dt.to(F32) + p[f'{path}/dt_bias'].to(F32))
+    dt = constrain(dt, 'data', None, 'model')
 
     if cache is None:
         y, final_state = ssd_chunked(xh, dt, a, bmat, cmat, d_skip,

@@ -40,6 +40,7 @@ from repro_torch.models.attention import (_full_positions, attention_block,
 from repro_torch.models.layers import (embed, embed_spec, linear, linear_spec,
                                        make_norm, mlp, mlp_spec)
 from repro_torch.models.moe import moe_apply, moe_spec
+from repro_torch.sharding.constraints import shard_activations
 
 F32 = torch.float32
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
@@ -141,7 +142,8 @@ class TransformerLM:
         }
         if not cfg.tie_embeddings:
             specs['lm_head'] = linear_spec(cfg.d_model, cfg.vocab,
-                                           dtype=cfg.pdtype)
+                                           dtype=cfg.pdtype,
+                                           axes=('embed', 'vocab'))
         return specs
 
     def precon_paths(self) -> set[str]:
@@ -210,6 +212,7 @@ class TransformerLM:
                  and torch.is_grad_enabled())
         cols, new_caches, auxs = [], [], []
         for p, bt, bc in zip(layers, layer_taps, layer_caches):
+            x = shard_activations(x)
             bcol: dict = {}
             if remat:
                 x, aux = self._remat_block(p, x, positions=positions,
@@ -258,11 +261,14 @@ class TransformerLM:
         loss = cross_entropy(logits, batch['labels']) + aux
         return loss, {'stats': col, 'n_tokens': b * s}
 
-    def init_cache(self, batch_size: int, max_seq: int, device='cuda'):
+    def init_cache(self, batch_size: int, max_seq: int, device='cuda',
+                   abstract: bool = False):
+        """Zero caches; ``abstract``: meta tensors (shapes and dtypes, the
+        dry run's stand-ins) whatever ``device``."""
         cfg = self.cfg
         shape = (cfg.n_layers, batch_size, max_seq, cfg.n_kv_heads,
                  cfg.head_dim)
-        dev = resolve_device(device)
+        dev = torch.device('meta') if abstract else resolve_device(device)
         dt = torch_dtype(cfg.cache_dtype)
         return {'blocks': {'k': torch.zeros(shape, dtype=dt, device=dev),
                            'v': torch.zeros(shape, dtype=dt, device=dev)}}

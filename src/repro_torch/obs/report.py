@@ -23,8 +23,6 @@ Phase-attribution notes:
     addend;
   * ``exchange`` is reported in logical bytes, from the exchange's own
     counters (``comm/metrics.py``); its time falls inside grad+precondition;
-  * the port's ``profile`` record has no ``fns`` cost summaries (those are
-    XLA's), so that part of the profile section stays empty for its runs.
 
 The breakdown of a run is the reference's, key for key, so the two reports
 agree on one run's records.
@@ -176,8 +174,8 @@ def breakdown(records: list[dict]) -> dict:
         bd['stragglers'] = len(stragglers)
     prof = _of(records, 'profile')
     if prof:
-        # latest memory numbers; cost summaries ('fns', written only by
-        # the reference) land in the first profiled step: merge them forward
+        # latest memory numbers; cost summaries ('fns') land in the first
+        # profiled step: merge them forward
         bd['profile'] = dict(prof[-1])
         if 'fns' not in bd['profile']:
             for p in prof:

@@ -16,6 +16,7 @@ import dataclasses
 from typing import Any, Callable, NamedTuple, Optional
 
 import torch
+from torch._subclasses.fake_tensor import FakeTensor
 
 from repro_torch.core.transform import scalar, tree_leaves, tree_map
 
@@ -171,8 +172,13 @@ def named_policy(name: str, **kwargs) -> RefreshPolicy:
 def on_host(policy: RefreshPolicy, refresh: torch.Tensor) -> bool:
     """The decision ``refresh`` as a host bool, to skip the work of a step
     that keeps the old values.  Reading it waits for the card (one sync);
-    a policy that always refreshes needs no read."""
-    return policy.always or bool(refresh)
+    a policy that always refreshes needs no read.  A fake decision (the
+    cost trace, ``launch/hlo_analysis.py``) has no value: the trace takes
+    the refresh, whose work the reference's one-program analysis counts
+    too."""
+    if policy.always or isinstance(refresh, FakeTensor):
+        return True
+    return bool(refresh)
 
 
 def resolve(policy: Optional[RefreshPolicy], interval: int = 1

@@ -337,3 +337,28 @@ def stats_plan_of(model, capture: kvlib.CaptureConfig, params: dict,
     _, _, stats = compute_grads_and_stats(
         model, params, batch, capture, taps_caller(taps_fn)(params, batch))
     return _plan_for_stats(params, stats)
+
+
+def abstract_opt_state(model, opt: GradientTransformation,
+                       capture: kvlib.CaptureConfig, params_abstract,
+                       batch_specs, taps_fn: Optional[Callable] = None,
+                       sched: Optional[schedrt.RefreshRuntime] = None,
+                       comm: Optional[Any] = None,
+                       factor: Optional[Any] = None,
+                       kernel: Optional[Any] = None):
+    """The optimizer state as meta tensors (shape and dtype, the dry run's
+    stand-ins): ``init_opt_state`` run under ``FakeTensorMode`` on fake
+    copies of the meta (or real) ``params_abstract`` and ``batch_specs``,
+    on the CPU's plain path; nothing is computed or allocated."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.launch.hlo_analysis import fake_copies
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    params, batch = fake_copies((params_abstract, batch_specs), mode, 'cpu')
+    with mode:
+        state = init_opt_state(model, opt, capture, params, batch, taps_fn,
+                               sched=sched, comm=comm, factor=factor,
+                               kernel=kernel, device='cpu')
+    return tree_map(lambda t: torch.empty(t.shape, dtype=t.dtype,
+                                          device='meta')
+                    if isinstance(t, torch.Tensor) else t, state)

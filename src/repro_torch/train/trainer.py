@@ -16,8 +16,10 @@
     ``refresh_ownership`` record at W = 1 and, after the first step, one
     ``comm_exchange`` record of the exchange sites the step recorded;
   * ``profile=True`` runs the step as ``make_phased_step``'s three phases
-    under spans fenced by ``torch.cuda.synchronize()``, with a ``profile``
-    record of the card's allocated bytes per logged step.
+    under spans fenced by a synchronize of each card the fence's tensors
+    lie on, with a ``profile`` record per logged step (live tensor MiB, the
+    allocator's bytes) and, on the first, each phase's cost summary
+    (``fns``, from the cost trace of ``launch/hlo_analysis.py``).
 
 The port's step returns new tensors and never writes its inputs, so
 ``fit`` never modifies the caller's tensors and ``TrainerConfig`` has no
@@ -175,7 +177,8 @@ class Trainer:
 
     def _profiled_step(self, tracker, step, data, params, opt_state):
         """One step through the phased functions under fenced spans; the
-        same (params, opt_state, metrics) as ``step_fn``."""
+        same (params, opt_state, metrics) as ``step_fn``, and each phase's
+        function with the arguments it took (the one-shot cost pass)."""
         grad_fn, update_fn, apply_fn = self._phases
         with tracker.span('step', step=step) as sp_all:
             with tracker.span('data', step=step):
@@ -183,21 +186,38 @@ class Trainer:
             with tracker.span('grad', step=step) as sp:
                 loss, grads, stats = grad_fn(params, batch)
                 sp.fence((loss, grads))
+            phase_args = {'grad': (grad_fn, (params, batch)),
+                          'precondition': (update_fn, (grads, stats, loss,
+                                                       opt_state, params))}
             with tracker.span('precondition', step=step) as sp:
                 updates, opt_state, metrics = update_fn(grads, stats, loss,
                                                         opt_state, params)
                 sp.fence(updates)
+            phase_args['apply'] = (apply_fn, (params, updates))
             with tracker.span('apply', step=step) as sp:
                 params = apply_fn(params, updates)
                 sp.fence(params)
             sp_all.fence(params)
-        return params, opt_state, metrics
+        return params, opt_state, metrics, phase_args
 
-    def _emit_profile(self, recorder, step):
-        rec: dict[str, Any] = {'step': step}
+    def _emit_profile(self, recorder, step, phase_args, one_shot_hlo):
+        """The ``profile`` record: live tensor bytes, the allocator's bytes
+        in use, and on ``one_shot_hlo`` each phase's cost summary, traced
+        on fake copies of the arguments it took (nothing runs or
+        launches)."""
+        rec: dict[str, Any] = {'step': step,
+                               'live_buffer_mb': obs_spans.live_buffer_mb()}
         dev = obs_spans.device_bytes_in_use()
         if dev is not None:
             rec['device_bytes_in_use'] = dev
+        if one_shot_hlo:
+            try:
+                rec['fns'] = {
+                    name: obs_spans.compiled_fn_costs(fn, *args)
+                    for name, (fn, args) in phase_args.items()}
+            except Exception as e:  # never fatal: a phase may read the host
+                print(f'[trainer] profile: cost pass skipped ({e})',
+                      flush=True)
         recorder.emit('profile', **rec)
 
     # -- main loop ------------------------------------------------------------
@@ -240,8 +260,9 @@ class Trainer:
             for step in range(start_step, cfg.total_steps):
                 if self._phases is not None:
                     t0 = time.perf_counter()
-                    params, opt_state, metrics = self._profiled_step(
-                        tracker, step, data, params, opt_state)
+                    params, opt_state, metrics, phase_args = \
+                        self._profiled_step(tracker, step, data, params,
+                                            opt_state)
                     loss = float(metrics['loss'])
                     dt = time.perf_counter() - t0
                 else:
@@ -282,7 +303,8 @@ class Trainer:
                     rec.update(self._kernel_fields())
                     recorder.emit('step', **rec)
                     if self._phases is not None:
-                        self._emit_profile(recorder, step)
+                        self._emit_profile(recorder, step, phase_args,
+                                           one_shot_hlo=(step == start_step))
                     print(f'[trainer] step {step:6d} loss {loss:.4f} '
                           f'({dt*1e3:.0f} ms){sched_line}', flush=True)
                 if cfg.ckpt_every and (step + 1) % cfg.ckpt_every == 0:

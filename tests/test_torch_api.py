@@ -2,11 +2,12 @@
 
 * Each name the reference's package ``__init__`` files export (``core``,
   ``train``, ``data``, ``comm``, ``schedule``, ``models``, ``obs``,
-  ``configs``) resolves in the port's package of the same name, and each
-  public def/class of a reference module resolves in its port module (under
-  the port's name where the port renamed it), apart from the names listed
-  below by the ROADMAP item they wait for, and ``kernels/tiles.py``, which
-  the port leaves out on purpose (``ABSENT_MODULES`` says why).
+  ``configs``, ``sharding``) resolves in the port's package of the same
+  name, and each public def/class of a reference module resolves in its
+  port module (under the port's name where the port renamed it), apart from
+  ``kernels/tiles.py`` and the few defs the port leaves out on purpose
+  (``ABSENT_MODULES`` and ``ABSENT_DEFS`` say why).  Nothing waits for a
+  later slice: the three waiting maps are empty.
 * The new functions match the reference on seeded numpy inputs, f32:
   ``eva_explicit``, ``eva_f_precondition`` and ``eva_s_precondition`` within
   1e-5 relative (of the output's largest magnitude), and ``eva_explicit``
@@ -39,22 +40,11 @@ from repro_torch.core import transform as tr  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 PACKAGES = ('core', 'train', 'data', 'comm', 'schedule', 'models', 'obs',
-            'configs')
+            'configs', 'sharding')
 # exported by a reference __init__, not yet ported: name -> ROADMAP item
-WAITING_EXPORTS = {
-    'train': {'abstract_opt_state': '13h'},
-    'models': {'train_batch_specs': '13h', 'prefill_batch_specs': '13h',
-               'decode_specs': '13h'},
-    'obs': {'hlo_costs': '13f', 'compiled_fn_costs': '13f',
-            'live_buffer_mb': '13f'},
-}
+WAITING_EXPORTS: dict = {}
 # reference modules with no port module yet
-WAITING_MODULES = {
-    'launch/dryrun.py': '13h', 'launch/hlo_analysis.py': '13h',
-    'launch/mesh.py': '13g', 'sharding/__init__.py': '13g',
-    'sharding/compat.py': '13g', 'sharding/constraints.py': '13g',
-    'sharding/logical.py': '13g',
-}
+WAITING_MODULES: dict = {}
 # reference modules the port leaves out on purpose: module -> why
 ABSENT_MODULES = {
     'kernels/tiles.py': 'fit_block clamps a tile so that the Pallas kernels '
@@ -62,14 +52,24 @@ ABSENT_MODULES = {
                         'and pad nothing (ROADMAP.md §2, the hazard)',
 }
 # public defs of a reference module that are not in its port module
-WAITING_DEFS = {
-    'models/module.py': {'abstract_params': '13h'},
-    'models/registry.py': {'train_batch_specs': '13h',
-                           'prefill_batch_specs': '13h',
-                           'decode_specs': '13h'},
-    'obs/spans.py': {'hlo_costs': '13f', 'compiled_fn_costs': '13f',
-                     'live_buffer_mb': '13f'},
-    'train/step.py': {'abstract_opt_state': '13h'},
+WAITING_DEFS: dict = {}
+_HLO_TEXT = ('the port traces (fn, *args) under a dispatch mode instead of '
+             'parsing compiled HLO text, and an eager trace sees every trip '
+             'of every loop: no trip-count multiplier is needed')
+# public defs of a reference module the port leaves out on purpose: why
+ABSENT_DEFS = {
+    'launch/hlo_analysis.py': {n: _HLO_TEXT for n in (
+        'Op', 'Computation', 'parse_hlo', 'computation_multipliers',
+        'shape_elems')},
+    'sharding/compat.py': {
+        'shard_map': 'the port binds the data axes by a process group in '
+                     'scope (comm/group.py::in_scope); make_dp_step takes '
+                     'the group and the global batch',
+        'cost_analysis': 'there is no compiled executable to ask: '
+                         'launch/hlo_analysis.analyze traces the function, '
+                         'and the dry run records torch.utils.flop_counter\'s '
+                         'count as cost_analysis_flops',
+    },
 }
 # the port's name for a reference def: its kernels also return the norms
 RENAMED = {
@@ -123,12 +123,19 @@ def test_reference_module_defs_resolve_in_the_port(rel):
         '.__init__')
     port = importlib.import_module(name)
     waiting = WAITING_DEFS.get(rel, {})
+    absent = ABSENT_DEFS.get(rel, {})
     renamed = RENAMED.get(rel, {})
-    missing = [n for n in sorted(_public_defs(ROOT / 'src' / 'repro' / rel))
-               if n not in waiting
+    defs = _public_defs(ROOT / 'src' / 'repro' / rel)
+    missing = [n for n in sorted(defs)
+               if n not in waiting and n not in absent
                and not hasattr(port, renamed.get(n, n))]
     assert not missing, f'{name} lacks {missing}'
     assert not any(hasattr(port, n) for n in waiting)
+    assert set(absent) <= defs and not any(hasattr(port, n) for n in absent)
+
+
+def test_nothing_waits_for_a_later_slice():
+    assert WAITING_EXPORTS == WAITING_MODULES == WAITING_DEFS == {}
 
 
 def test_imports_build_no_kernel():
@@ -143,6 +150,8 @@ def test_imports_build_no_kernel():
         'import repro_torch.comm, repro_torch.schedule, repro_torch.models\n'
         'import repro_torch.obs, repro_torch.configs\n'
         'import repro_torch.obs.report, repro_torch.launch.train\n'
+        'import repro_torch.sharding, repro_torch.launch.dryrun\n'
+        'import repro_torch.launch.hlo_analysis, repro_torch.launch.mesh\n'
         'assert not build._loaded\n'
         'import sys\n'
         'assert not any(m == "jax" or m.startswith(("jax.", "repro."))'

@@ -48,7 +48,9 @@ def test_port_files_found():
             'obs_report_torch.py', 'quickstart_torch.py',
             'train_lm_torch.py', 'autoencoder_eva_torch.py',
             'optimizer_comparison_torch.py', 'serve_lm_torch.py',
-            'autotune.py', 'autotune_torch.py'} <= names
+            'autotune.py', 'autotune_torch.py', 'hlo_analysis.py',
+            'dryrun.py', 'mesh.py', 'compat.py', 'constraints.py',
+            'logical.py'} <= names
 
 
 MULTI_WORKER_MODULES = ['repro_torch.comm.codec', 'repro_torch.comm.metrics',
@@ -75,6 +77,28 @@ def test_multi_worker_modules_import_quietly(name):
     from repro_torch.schedule import ownership
     assert group.current() is None
     assert ownership.world_and_rank() == (1, None)
+
+
+LAYOUT_MODULES = ['repro_torch.sharding', 'repro_torch.sharding.compat',
+                  'repro_torch.sharding.constraints',
+                  'repro_torch.sharding.logical',
+                  'repro_torch.launch.hlo_analysis',
+                  'repro_torch.launch.mesh', 'repro_torch.launch.dryrun']
+
+
+@pytest.mark.parametrize('name', LAYOUT_MODULES)
+def test_layout_modules_import_quietly(name):
+    """Importing a module of the layouts, the cost trace or the dry run
+    joins no group, enters no mesh and registers no trace."""
+    import importlib
+
+    import torch.distributed as dist
+    importlib.import_module(name)
+    assert not dist.is_initialized()
+    from repro_torch.kernels import launch
+    from repro_torch.sharding import compat
+    assert compat.current_mesh() is None
+    assert launch.tracers == []
 
 
 def _no_card():

@@ -366,3 +366,43 @@ def elastic_cases(rank, world, params_np, root):
                                    world_fn=fn)[2]
     out['onestep'] = runs
     return out
+
+
+def layout_loss(arch, params_np, batch_np, mesh_shape=(2, 2)):
+    """The reduced ``arch``'s loss on ``batch_np`` from ``params_np``, in
+    one process under an abstract ('data', 'model') mesh of
+    ``mesh_shape`` (MoE routes in data-axis groups; every layout call is
+    the identity)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.sharding import compat
+    model = build_model(get_reduced(arch))
+    params = {k: torch.from_numpy(v) for k, v in params_np.items()}
+    batch = {k: torch.from_numpy(v) for k, v in batch_np.items()}
+    with compat.set_mesh(compat.AbstractMesh(mesh_shape, ('data', 'model'))):
+        loss, _ = model.loss_fn(params, None, batch, None)
+    return float(loss)
+
+
+def layout_cases(rank, world, arch, params_np, batch_np):
+    """The same loss with DTensor parameters and batch laid out by the
+    production rules on a (2, 2) ('data', 'model') DeviceMesh of the four
+    gloo ranks; returns (loss, the ops that ran replicated)."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import build_model
+    from repro_torch.sharding import compat, input_shardings, param_shardings
+    model = build_model(get_reduced(arch))
+    mesh = compat.make_mesh((2, 2), ('data', 'model'), 'cpu')
+    assert compat.is_device_mesh(mesh)
+    specs = M.flatten_specs(param_shardings(model.param_specs(), mesh))
+    params = {k: compat.distribute(torch.from_numpy(v), specs[k], mesh)
+              for k, v in params_np.items()}
+    bspec = input_shardings(batch_np and {k: torch.from_numpy(v)
+                                          for k, v in batch_np.items()}, mesh)
+    batch = {k: compat.distribute(torch.from_numpy(v), bspec[k], mesh)
+             for k, v in batch_np.items()}
+    log = []
+    with compat.set_mesh(mesh, log):
+        loss, _ = model.loss_fn(params, None, batch, None)
+        loss = loss.full_tensor() if hasattr(loss, 'full_tensor') else loss
+    return float(loss), sorted(set(log))
