@@ -2580,25 +2580,12 @@ def _token_batches(torch, vocab, b, s, n, seed, embeds=None):
     return out
 
 
-@contextlib.contextmanager
-def _drops(torch):
-    """While a model runs, each MoE ``route`` call, in call order (one call
-    a MoE layer and forward); yields the list of (assignments, dropped,
-    experts holding at least one slot: the others get a = 0 and only the
-    s·G part of Eva's rank-one term)."""
-    from repro_torch.models import moe
-    route, seen = moe.route, []
-
-    def spy(flat_e, *args):
-        out = route(flat_e, *args)
-        seen.append((flat_e.numel(), int((~out[3]).sum().item()),
-                     int((out[1].sum(1) > 0).sum().item())))
-        return out
-    moe.route = spy
-    try:
-        yield seen
-    finally:
-        moe.route = route
+def _moe_counts(tracker, what):
+    """The program's MoE counter ``what`` ('assignments' or 'dropped') of
+    a session, one value a MoE layer call in call order, over every MoE
+    path."""
+    return [int(v) for name, values in tracker.counters.items()
+            if name.startswith(f'moe.{what}/') for v in values]
 
 
 def _plan_calls(torch, model, params):
@@ -2770,9 +2757,10 @@ def _family_serving(torch, model, full_model, params, toks, prompt, tag,
     length).  No MoE assignment may drop.  Returns (last decode logits,
     full prefill logits, both f32, and what it read)."""
     from repro_torch.launch.serve import grow_cache
+    from repro_torch.obs import spans
     extra = extra or {}
     b, total = toks.shape[0], prompt + SERVE_GEN
-    with _drops(torch) as drops:
+    with spans.recording(spans.SpanTracker()) as tracker:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         logits, cache = model.prefill_fn(params, {'tokens': toks[:, :prompt],
@@ -2791,8 +2779,8 @@ def _family_serving(torch, model, full_model, params, toks, prompt, tag,
         t_decode = (time.perf_counter() - t0) / SERVE_GEN
         full, _ = full_model.prefill_fn(params, {'tokens': toks[:, :total],
                                                  **extra})
-    dropped = sum(d for _, d, _ in drops)
-    require(dropped == 0, f'{tag}: {dropped} MoE assignments dropped')
+    drops = _moe_counts(tracker, 'dropped')
+    require(sum(drops) == 0, f'{tag}: {sum(drops)} MoE assignments dropped')
     got, want = logits.float(), full.float()
     info = {'prompt': prompt, 'decoded': SERVE_GEN, 'batch': b,
             'compute_dtype': str(model.cfg.compute_dtype),
@@ -2897,6 +2885,7 @@ def moe_phase(torch, rows):
     from repro_torch.configs.registry import get_config
     from repro_torch.models.moe import capacity
     from repro_torch.models.registry import build_model
+    from repro_torch.obs import spans
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     cfg = get_config(MOE_ARCH).replace(n_layers=MOE_DEPTH)
@@ -2909,16 +2898,16 @@ def moe_phase(torch, rows):
                              FAMILY_STEPS + 1, 90)
     cap = capacity(MOE_BATCH * MOE_SEQ, cfg.top_k, cfg.n_experts,
                    cfg.capacity_factor)
-    with _drops(torch) as drops, torch.no_grad():
+    # the program's MoE counters, one value a layer and batch in call order
+    with spans.recording(spans.SpanTracker()) as tracker, torch.no_grad():
         for batch in batches[:FAMILY_STEPS]:
             model.loss_fn(params0, None, batch, None)
-    per_layer = [drops[i::MOE_DEPTH] for i in range(MOE_DEPTH)]
-    dropped = [[d for _, d, _ in l] for l in per_layer]
-    used = [[u for _, _, u in l] for l in per_layer]
+    drops = _moe_counts(tracker, 'dropped')
+    dropped = [drops[i::MOE_DEPTH] for i in range(MOE_DEPTH)]
     print(f'  {n_params} parameters; capacity {cap} slots an expert; per '
-          f'layer over the {FAMILY_STEPS} batches, dropped of {drops[0][0]} '
-          f'assignments {dropped}, experts of {cfg.n_experts} holding a '
-          f'slot (a nonzero rank-one term) {used}', flush=True)
+          f'layer over the {FAMILY_STEPS} batches, dropped of '
+          f'{_moe_counts(tracker, "assignments")[0]} assignments {dropped}',
+          flush=True)
     counts, per_step, info = _family_paths(
         torch, model, params0, batches, FAMILY_PATHS, 'moe', bf16=True)
     # SGD's step, the yardstick
@@ -2928,7 +2917,6 @@ def moe_phase(torch, rows):
     info['sgd_step_ms'] = sgd_ms
     info['train_peak_device_gb'] = torch.cuda.max_memory_allocated() / 1e9
     info['dropped_per_layer'] = dropped
-    info['experts_with_slots_per_layer'] = used
     info['capacity'] = cap
     print(f'  sgd step ms {[round(x, 1) for x in sgd_ms]}; peak device '
           f'memory of the training runs {info["train_peak_device_gb"]:.2f} '

@@ -19,6 +19,7 @@ import torch.nn.functional as F
 
 from repro_torch.core import kv as kvlib
 from repro_torch.models.module import ParamSpec
+from repro_torch.obs import spans as obs_spans
 
 F32 = torch.float32
 
@@ -51,7 +52,8 @@ def linear(params: dict, x: torch.Tensor, *, path: str, col: dict,
         x = x.to(compute_dtype)
         w = w.to(compute_dtype)
     if capture is not None and capture.a is not None:
-        col[wpath] = kvlib.fwd_stats(x, capture)
+        with obs_spans.span('capture'):
+            col[wpath] = kvlib.fwd_stats(x, capture)
     y = x @ w
     bias = params.get(f'{path}/b')
     if bias is not None:

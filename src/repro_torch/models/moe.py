@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from repro_torch.core import kv as kvlib
 from repro_torch.models.layers import linear, linear_spec
 from repro_torch.models.module import ParamSpec
+from repro_torch.obs import spans as obs_spans
 from repro_torch.sharding.constraints import _current_mesh, constrain
 
 F32 = torch.float32
@@ -57,8 +58,9 @@ def _expert_linear(w, x, *, wpath: str, col, taps, capture, mask):
     e, g, c = x.shape[:3]
     xf = x.reshape(e, g * c, x.shape[-1])
     if capture is not None and capture.a is not None:
-        col[wpath] = kvlib.fwd_stats_masked(xf, mask.reshape(e, g * c),
-                                            capture)
+        with obs_spans.span('capture'):
+            col[wpath] = kvlib.fwd_stats_masked(xf, mask.reshape(e, g * c),
+                                                capture)
     y = torch.bmm(xf, w)
     if taps is not None and wpath in taps:
         y = y + taps[wpath][:, None, :].to(y.dtype)
@@ -120,7 +122,9 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
               compute_dtype=None, aux_coef: float = 0.0):
     """x: (B, S, D) -> (y, aux_loss).  ``p`` is a flat dict holding
     ``f'{path}/router/w'``, ``f'{path}/gate/w'`` (E, D, d_ff) and the rest.
-    Dropless up to capacity; overflow drops."""
+    Dropless up to capacity; overflow drops.  While tracing is on
+    (``obs/spans.py``) the assignments and the dropped ones are counted,
+    once a call, as ``moe.assignments/<path>`` and ``moe.dropped/<path>``."""
     col = col if col is not None else {}
     b, s, d = x.shape
     t = b * s
@@ -152,6 +156,10 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     slot_token, slot_mask, flat_slot, ok = route(
         expert_ids.reshape(groups, tg * top_k), n_experts, top_k, cap)
     slot_mask = slot_mask.movedim(0, 1)                            # (E,G,C)
+    tracker = obs_spans.tracing()
+    if tracker is not None:
+        tracker.count(f'moe.assignments/{path}', ok.numel())
+        tracker.count(f'moe.dropped/{path}', (~ok).sum())
 
     xd = xt.to(compute_dtype) if compute_dtype is not None else xt
     xg = constrain(xd.reshape(groups, tg, d), 'data', None, None)

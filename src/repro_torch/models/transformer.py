@@ -40,6 +40,7 @@ from repro_torch.models.attention import (_full_positions, attention_block,
 from repro_torch.models.layers import (embed, embed_spec, linear, linear_spec,
                                        make_norm, mlp, mlp_spec)
 from repro_torch.models.moe import moe_apply, moe_spec
+from repro_torch.obs import spans as obs_spans
 from repro_torch.sharding.constraints import shard_activations
 
 F32 = torch.float32
@@ -65,13 +66,15 @@ def remat_call(remat: str, fn, x: torch.Tensor, col: dict):
     'dots').  Autograd's recompute runs ``fn`` again with the same capture,
     so that the matmuls it saved line up with the forward's; the first call
     records its stats into ``col``, the recompute's go to a dict that is
-    dropped."""
+    dropped.  The recompute runs under a 'recompute' span."""
     calls = []
 
     def run(x):
-        sink = col if not calls else {}
+        if calls:
+            with obs_spans.span('recompute'):
+                return fn(x, {})
         calls.append(None)
-        return fn(x, sink)
+        return fn(x, col)
 
     return ckpt.checkpoint(run, x, use_reentrant=False,
                            context_fn=_REMAT_CONTEXT[remat])

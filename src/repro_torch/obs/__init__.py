@@ -1,6 +1,6 @@
-"""Telemetry, as in ``repro.obs``: typed event records (``events``), phase
-spans, the straggler watchdog and the profile-mode samplers (``spans``),
-and the run report (``report``, ``scripts/obs_report_torch.py``)."""
+"""Telemetry, as in ``repro.obs``: typed event records (``events``), spans
+and counters, the straggler watchdog and the profile-mode samplers
+(``spans``), and the run report (``report``, ``scripts/obs_report_torch.py``)."""
 from repro_torch.obs.events import (SCHEMA_VERSION, SCHEMAS, Recorder,
                                     SchemaError, infer_event, step_fields,
                                     validate_record)

@@ -25,6 +25,7 @@ from repro_torch.core import kv as kvlib
 from repro_torch.core.transform import (Extras, GradientTransformation,
                                         apply_updates, tree_map)
 from repro_torch.device import resolve_device
+from repro_torch.obs import spans as obs_spans
 from repro_torch.schedule import pipeline as pipemod
 from repro_torch.schedule import runtime as schedrt
 
@@ -79,20 +80,23 @@ def _to_device(batch: dict, device: torch.device) -> dict:
     return {k: v.to(device, non_blocking=True) for k, v in batch.items()}
 
 
-def compute_grads_and_stats(model, params: dict, batch: dict,
-                            capture: kvlib.CaptureConfig,
-                            taps: Optional[dict] = None):
-    """(loss, grads, stats): one forward and backward of ``model.loss_fn``.
-
-    b̄ (or, with full taps, the per-token cotangent behind B) is the
-    gradient of each zero tap, taken by the same backward pass as the
-    weight gradients.  ``taps`` overrides the default taps."""
+def _forward(model, params: dict, batch: dict,
+             capture: kvlib.CaptureConfig, taps: Optional[dict]):
+    """``model.loss_fn`` on differentiable copies of the parameters and the
+    taps: (loss, aux, leaves, taps)."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
     if taps is None:
         taps = _default_taps(model, params, batch, capture)
     if taps is not None:
         taps = {k: t.detach().requires_grad_(True) for k, t in taps.items()}
     loss, aux = model.loss_fn(leaves, taps, batch, capture)
+    return loss, aux, leaves, taps
+
+
+def _backward(loss, aux, leaves: dict, taps: Optional[dict],
+              capture: kvlib.CaptureConfig):
+    """(loss, grads, stats) from ``_forward``'s output: one backward pass
+    for the weight and the tap gradients, then the statistics."""
     inputs = list(leaves.values()) + (list(taps.values()) if taps else [])
     # a leaf the loss does not read (a VLM's token table) gets zeros, as
     # JAX's gradient gives
@@ -102,9 +106,21 @@ def compute_grads_and_stats(model, params: dict, batch: dict,
     tap_grads = dict(zip(taps, got[len(leaves):])) if taps else None
     stats = None
     if capture.active:
-        stats = kvlib.finalize_stats(aux['stats'], tap_grads, capture,
-                                     n_tokens=aux['n_tokens'])
+        with obs_spans.span('capture'):
+            stats = kvlib.finalize_stats(aux['stats'], tap_grads, capture,
+                                         n_tokens=aux['n_tokens'])
     return loss.detach(), grads, stats
+
+
+def compute_grads_and_stats(model, params: dict, batch: dict,
+                            capture: kvlib.CaptureConfig,
+                            taps: Optional[dict] = None):
+    """(loss, grads, stats): one forward and backward of ``model.loss_fn``.
+
+    b̄ (or, with full taps, the per-token cotangent behind B) is the
+    gradient of each zero tap, taken by the same backward pass as the
+    weight gradients.  ``taps`` overrides the default taps."""
+    return _backward(*_forward(model, params, batch, capture, taps), capture)
 
 
 def _step_metrics(loss, grads, new_state) -> dict:
@@ -121,8 +137,83 @@ def _step_metrics(loss, grads, new_state) -> dict:
     return metrics
 
 
+# The phases of a step, each under its span (``obs/spans.py``; recorded only
+# while tracing is on): 'forward' (the batch's move, the taps, the loss and
+# the statistics' forward half, each capture under a 'capture' span),
+# 'backward' (the gradients and ``finalize_stats`` under a 'capture' span),
+# 'update' (the optimizer), 'step_metrics' and 'apply'.  They tile a step.
+
+
+def _grad_phase(model, capture: kvlib.CaptureConfig, make_taps: Callable,
+                dev: torch.device, rows: Optional[Callable] = None,
+                reduce: Optional[Callable] = None) -> Callable:
+    """``grad_fn(params, batch) -> (loss, grads, stats)``: the batch moved
+    to ``dev`` and cut to ``rows(batch)``, its taps and the forward pass,
+    then the backward pass and ``reduce(loss, grads, stats)``."""
+    def grad_fn(params, batch):
+        with obs_spans.span('forward'):
+            batch = _to_device(batch, dev)
+            if rows is not None:
+                batch = rows(batch)
+            fwd = _forward(model, params, batch, capture,
+                           make_taps(params, batch))
+        with obs_spans.span('backward'):
+            out = _backward(*fwd, capture)
+            return out if reduce is None else reduce(*out)
+
+    return grad_fn
+
+
+def _update_phase(opt: GradientTransformation, **extras) -> Callable:
+    """``update_fn(grads, stats, loss, opt_state, params) -> (updates,
+    new_state, metrics)``; ``extras`` are ``Extras``' ``sched``, ``comm``,
+    ``factor`` and ``kernel``."""
+    def update_fn(grads, stats, loss, opt_state, params):
+        with obs_spans.span('update'):
+            updates, new_state = opt.update(
+                grads, opt_state, params=params,
+                extras=Extras(stats=stats, loss=loss,
+                              plan=_plan_for_stats(grads, stats), **extras))
+        with obs_spans.span('step_metrics'):
+            metrics = _step_metrics(loss, grads, new_state)
+        return updates, new_state, metrics
+
+    return update_fn
+
+
+def _apply_phase(params, updates):
+    with obs_spans.span('apply'):
+        return apply_updates(params, updates)
+
+
 def _sum_tree(acc, tree):
     return tree if acc is None else tree_map(lambda a, x: a + x, acc, tree)
+
+
+def _microbatched(grad_fn: Callable, n: int) -> Callable:
+    """``grad_fn`` over ``n`` microbatches, the batch split on dim 0, as the
+    reference's scan: the gradients summed in f32, the statistics and the
+    losses summed, each divided by ``n`` (the sums in the 'backward'
+    span)."""
+    def acc_fn(params, batch):
+        parts = {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:]))
+                 for k, v in batch.items()}
+        g_sum = s_sum = l_sum = None
+        for i in range(n):
+            loss, grads, stats = grad_fn(params,
+                                         {k: v[i] for k, v in parts.items()})
+            with obs_spans.span('backward'):
+                g_sum = _sum_tree(g_sum, tree_map(lambda g: g.to(F32), grads))
+                if stats is not None:
+                    s_sum = _sum_tree(s_sum, tree_map(lambda s: s.to(F32),
+                                                      stats))
+                l_sum = loss.to(F32) if l_sum is None else l_sum + loss
+                if i == n - 1:
+                    inv = 1.0 / n
+                    return (l_sum * inv, tree_map(lambda g: g * inv, g_sum),
+                            tree_map(lambda s: s * inv, s_sum))
+
+    return acc_fn
 
 
 def make_train_step(model, opt: GradientTransformation,
@@ -135,7 +226,7 @@ def make_train_step(model, opt: GradientTransformation,
                     kernel: Optional[Any] = None,
                     device='cuda') -> Callable:
     """Build ``train_step(params, opt_state, batch) -> (params, state,
-    metrics)``.
+    metrics)``: the composition of ``make_phased_step``'s phases.
 
     ``taps_fn(params)`` or ``taps_fn(params, batch)`` makes the taps (see
     :func:`taps_caller`; full taps for K-FAC).  ``microbatches > 1`` splits
@@ -152,43 +243,17 @@ def make_train_step(model, opt: GradientTransformation,
     transform is scheduled) and, when a factor is sharded,
     ``factor_sharded.step_metrics``.
     """
-    dev = resolve_device(device)
-    sched = sched if sched is not None else schedrt.RefreshRuntime()
-    make_taps = taps_caller(taps_fn)
-
-    def grads_of(params, batch):
-        return compute_grads_and_stats(model, params, batch, capture,
-                                       make_taps(params, batch))
+    grad_fn, update_fn, apply_fn = make_phased_step(
+        model, opt, capture, taps_fn, sched=sched, comm=comm, factor=factor,
+        kernel=kernel, device=device)
+    if microbatches > 1:
+        grad_fn = _microbatched(grad_fn, microbatches)
 
     def train_step(params, opt_state, batch):
-        batch = _to_device(batch, dev)
-        if microbatches > 1:
-            g_sum = s_sum = None
-            l_sum = torch.zeros((), dtype=F32, device=dev)
-            parts = {k: v.reshape((microbatches, v.shape[0] // microbatches)
-                                  + tuple(v.shape[1:]))
-                     for k, v in batch.items()}
-            for i in range(microbatches):
-                loss, grads, stats = grads_of(
-                    params, {k: v[i] for k, v in parts.items()})
-                g_sum = _sum_tree(g_sum, tree_map(lambda g: g.to(F32), grads))
-                if stats is not None:
-                    s_sum = _sum_tree(s_sum, tree_map(lambda s: s.to(F32),
-                                                      stats))
-                l_sum = l_sum + loss
-            inv = 1.0 / microbatches
-            grads = tree_map(lambda g: g * inv, g_sum)
-            stats = tree_map(lambda s: s * inv, s_sum)
-            loss = l_sum * inv
-        else:
-            loss, grads, stats = grads_of(params, batch)
-        updates, new_state = opt.update(
-            grads, opt_state, params=params,
-            extras=Extras(stats=stats, loss=loss,
-                          plan=_plan_for_stats(grads, stats), sched=sched,
-                          comm=comm, factor=factor, kernel=kernel))
-        new_params = apply_updates(params, updates)
-        return new_params, new_state, _step_metrics(loss, grads, new_state)
+        loss, grads, stats = grad_fn(params, batch)
+        updates, new_state, metrics = update_fn(grads, stats, loss,
+                                                opt_state, params)
+        return apply_fn(params, updates), new_state, metrics
 
     return train_step
 
@@ -222,7 +287,8 @@ def make_dp_step(model, opt: GradientTransformation,
 
     Parameters and optimizer state are replicated.  The loss is
     mean-reduced, the gradients and the KV statistics mean-all-reduced in
-    f32 (sites ``grads/dp`` and ``stats/dp``); the optimizer runs with the
+    f32 (sites ``grads/dp`` and ``stats/dp``, in the 'backward' span); the
+    optimizer runs with the
     group in scope, so the worker-sharded refresh, the owned-slice exchange
     and the factor bands see W workers (the optimizer's own mean of the
     already identical statistics is a further exact, idempotent exchange,
@@ -231,30 +297,30 @@ def make_dp_step(model, opt: GradientTransformation,
     The same metrics as ``make_train_step``."""
     dev = resolve_device(device)
     sched = sched if sched is not None else schedrt.RefreshRuntime()
-    make_taps = taps_caller(taps_fn)
     scope = group_mod.scope_of(group)
+
+    def mean_over_group(loss, grads, stats):
+        loss = exchange.allreduce_mean_tree(loss, codec='f32')[0]
+        grads, _, _ = exchange.allreduce_mean_tree(
+            grads, codec='f32', site='grads/dp')
+        if stats is not None:
+            stats, _, _ = exchange.allreduce_mean_tree(
+                stats, codec='f32', site='stats/dp')
+        return loss, grads, stats
+
+    grad_fn = _grad_phase(
+        model, capture, taps_caller(taps_fn), dev,
+        rows=lambda b: _local_rows(b, scope.world, scope.rank),
+        reduce=mean_over_group)
+    update_fn = _update_phase(opt, sched=sched, comm=comm, factor=factor,
+                              kernel=kernel)
 
     def dp_step(params, opt_state, batch):
         with group_mod.in_scope(scope):
-            local = _local_rows(_to_device(batch, dev), scope.world,
-                                scope.rank)
-            loss, grads, stats = compute_grads_and_stats(
-                model, params, local, capture, make_taps(params, local))
-            loss = exchange.allreduce_mean_tree(loss, codec='f32')[0]
-            grads, _, _ = exchange.allreduce_mean_tree(
-                grads, codec='f32', site='grads/dp')
-            if stats is not None:
-                stats, _, _ = exchange.allreduce_mean_tree(
-                    stats, codec='f32', site='stats/dp')
-            updates, new_state = opt.update(
-                grads, opt_state, params=params,
-                extras=Extras(stats=stats, loss=loss,
-                              plan=_plan_for_stats(grads, stats),
-                              sched=sched, comm=comm, factor=factor,
-                              kernel=kernel))
-            new_params = apply_updates(params, updates)
-            return new_params, new_state, _step_metrics(loss, grads,
-                                                        new_state)
+            loss, grads, stats = grad_fn(params, batch)
+            updates, new_state, metrics = update_fn(grads, stats, loss,
+                                                    opt_state, params)
+            return _apply_phase(params, updates), new_state, metrics
 
     return dp_step
 
@@ -271,29 +337,13 @@ def make_phased_step(model, opt: GradientTransformation,
     ``grad_fn(params, batch) -> (loss, grads, stats)``,
     ``update_fn(grads, stats, loss, opt_state, params) -> (updates,
     new_state, metrics)`` and ``apply_fn(params, updates) -> new_params``.
-    Their composition is ``make_train_step(microbatches=1)``, bit for bit:
-    the same calls in the same order."""
+    Their composition is ``make_train_step(microbatches=1)``."""
     dev = resolve_device(device)
     sched = sched if sched is not None else schedrt.RefreshRuntime()
-    make_taps = taps_caller(taps_fn)
-
-    def grad_fn(params, batch):
-        batch = _to_device(batch, dev)
-        return compute_grads_and_stats(model, params, batch, capture,
-                                       make_taps(params, batch))
-
-    def update_fn(grads, stats, loss, opt_state, params):
-        updates, new_state = opt.update(
-            grads, opt_state, params=params,
-            extras=Extras(stats=stats, loss=loss,
-                          plan=_plan_for_stats(grads, stats), sched=sched,
-                          comm=comm, factor=factor, kernel=kernel))
-        return updates, new_state, _step_metrics(loss, grads, new_state)
-
-    def apply_fn(params, updates):
-        return apply_updates(params, updates)
-
-    return grad_fn, update_fn, apply_fn
+    return (_grad_phase(model, capture, taps_caller(taps_fn), dev),
+            _update_phase(opt, sched=sched, comm=comm, factor=factor,
+                          kernel=kernel),
+            _apply_phase)
 
 
 def init_opt_state(model, opt: GradientTransformation,

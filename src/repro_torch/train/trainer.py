@@ -198,6 +198,7 @@ class Trainer:
                 params = apply_fn(params, updates)
                 sp.fence(params)
             sp_all.fence(params)
+        tracker.resolve()      # fenced: frees the spans' events at once
         return params, opt_state, metrics, phase_args
 
     def _emit_profile(self, recorder, step, phase_args, one_shot_hlo):
