@@ -116,7 +116,11 @@ Phases; any failure stops the run with a non-zero exit:
               step, the dropped assignments per layer; each kernel's calls
               of one step on operands of the path's shapes (bf16 G) from a
               CUDA graph and eager beside its plain version, bound and
-              library call.  Serving: a 2 x 2048 prefill, the cache grown,
+              library call; one MoE layer's forward and backward at the
+              cell's shapes (T 4096, E 128, C 320, D 2048, bf16) on the
+              gather-form path and on the advanced-index gathers, the same
+              output and weight gradients bit for bit, device ms a call,
+              and the moe.gather_form counter.  Serving: a 2 x 2048 prefill, the cache grown,
               16 decode steps, against one prefill over all 2064 tokens
               (dropless capacity 16), with f32 compute held to 2e-2 and the
               argmax equal, bf16 compute read.  9b: mamba2-780m whole (48
@@ -371,6 +375,11 @@ BF16_DECODE_RATIO = 3.0
 MOE_ARCH, MOE_DEPTH, MOE_PARAMS = 'qwen3-moe-30b-a3b', 4, 3_114_813_440
 MOE_BATCH, MOE_SEQ = 2, 2048
 MOE_TIME_ITERS, MOE_TIME_REPEATS = 2, 1
+# one MoE layer's forward and backward a call, timed in turns (advanced
+# index, gather form, gather form, advanced index) of this many calls; the
+# token gradient held within bf16 summation order: one epsilon a term of
+# the top-8 sum, of its largest magnitude (as tests/test_torch_moe.py)
+MOE_LAYER_ITERS, MOE_LAYER_GRAD_REL = 5, 8 * 2.0 ** -7
 # 9b: mamba2-780m whole, 4 x 2048 tokens a step: sequences of 2048 (8
 # chunks of 256), four of them; a step peaks near 24 GB on an H100
 MAMBA_BATCH, MAMBA_SEQ = 4, 2048
@@ -2878,6 +2887,78 @@ def _moe_times(torch, model):
     return out
 
 
+def _moe_layer_paths(torch, cfg):
+    """One MoE layer of ``cfg`` at the cell's shapes, forward and backward
+    of a loss of its output, on the gather-form path (plain tensors) and
+    on the advanced-index gathers (the DTensor path's, forced on the same
+    tensors): output, weight and combine gradients equal bit for bit, the
+    token gradient within MOE_LAYER_GRAD_REL of its largest magnitude;
+    device ms a call of each path; the program's counters."""
+    from repro_torch.models import module as M
+    from repro_torch.models import moe
+    from repro_torch.obs import spans
+    specs = M.add_prefix(M.flatten_specs(moe.moe_spec(
+        cfg.d_model, cfg.d_ff, cfg.n_experts, torch.bfloat16)), 'moe')
+    gen = torch.Generator(device='cuda').manual_seed(92)
+    params = {k: v.requires_grad_(True)
+              for k, v in M.init_params(specs, gen, device='cuda').items()}
+    x = torch.randn((MOE_BATCH, MOE_SEQ, cfg.d_model), generator=gen,
+                    device='cuda').to(torch.bfloat16).requires_grad_(True)
+    dy = torch.randn(x.shape, generator=gen, device='cuda').to(x.dtype)
+    kw = dict(top_k=cfg.top_k, capacity_factor=cfg.capacity_factor,
+              norm_topk=cfg.norm_topk, path='moe', compute_dtype=x.dtype,
+              aux_coef=cfg.moe_aux_coef)
+    plain = moe._plain
+
+    def call(gather_form):
+        moe._plain = plain if gather_form else (lambda *ts: False)
+        try:
+            y, aux = moe.moe_apply(params, x, **kw)
+            grads = torch.autograd.grad(
+                [y, aux], [x, *params.values()],
+                [dy, torch.ones_like(aux)])
+        finally:
+            moe._plain = plain
+        return y, grads
+
+    out = {}
+    with spans.recording(spans.SpanTracker()) as tracker:
+        got = call(True)
+        torch.cuda.synchronize()
+        out['counters'] = {k: tracker.total(k) for k in tracker.counters}
+    want = call(False)
+    require(torch.equal(got[0], want[0]), '9a MoE layer: outputs differ')
+    for name, g, w in zip(['x', *params], got[1], want[1]):
+        if name == 'x':
+            gap = float((g.float() - w.float()).abs().max())
+            out['token_grad_rel'] = gap / float(w.float().abs().max())
+            require(out['token_grad_rel'] <= MOE_LAYER_GRAD_REL,
+                    f'9a MoE layer: token gradient {out["token_grad_rel"]}')
+        else:
+            require(torch.equal(g, w), f'9a MoE layer: gradient of {name}')
+    del got, want
+    ms = {True: [], False: []}
+    for gather_form in (False, True, True, False):
+        call(gather_form)
+        torch.cuda.synchronize()
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        for _ in range(MOE_LAYER_ITERS):
+            call(gather_form)
+        t1.record()
+        torch.cuda.synchronize()
+        ms[gather_form].append(t0.elapsed_time(t1) / MOE_LAYER_ITERS)
+    out['gather_form_ms'], out['advanced_index_ms'] = ms[True], ms[False]
+    out['capacity'] = moe.capacity(MOE_BATCH * MOE_SEQ, cfg.top_k,
+                                   cfg.n_experts, cfg.capacity_factor)
+    print(f'  one MoE layer, forward and backward, device ms a call: '
+          f'gather form {ms[True]}, advanced index {ms[False]}; token '
+          f'gradient {out["token_grad_rel"]:.3g} of its largest; counters '
+          f'{out["counters"]}', flush=True)
+    return out
+
+
 def moe_phase(torch, rows):
     """9a: qwen3-moe-30b-a3b at its published widths, depth 4."""
     phase(f'9a {MOE_ARCH} at published widths, depth {MOE_DEPTH} of 48, '
@@ -2930,6 +3011,7 @@ def moe_phase(torch, rows):
     del params0, batches
     torch.cuda.empty_cache()
     times = _moe_times(torch, model)
+    info['moe_layer'] = _moe_layer_paths(torch, cfg)
     _add_counts(rows, counts, per_step)
     for row in rows:
         if row['name'] in times:

@@ -19,6 +19,14 @@ and only the (E, G, C, D) slot tensor moves from token-major (G over the
 data axes) to expert-major (E over 'model'): an all-to-all of slot volume.
 The ``constrain`` calls lay those tensors out on a DeviceMesh and are the
 identity without one.  At G = 1 the ops are the single-group ones.
+
+On plain tensors (one device, CPU or CUDA) the dispatch and combine gathers
+are ``gather_rows``: an ``index_select`` whose backward gathers through the
+inverse map, over the filled slots and the assignments that fit alone.  The
+advanced-index gather's own backward (``index_put`` with accumulate) sorts
+every index and piles each empty slot's zero gradient onto token 0, and
+each dropped assignment's onto its expert's last slot.  A DTensor keeps the
+advanced-index gathers, which DTensor lays out on the mesh.
 """
 from __future__ import annotations
 
@@ -116,6 +124,73 @@ def route(flat_e: torch.Tensor, n_experts: int, top_k: int, cap: int):
             flat_slot.reshape(lead + (n,)), ok.reshape(lead + (n,)))
 
 
+class GatherRows(torch.autograd.Function):
+    """``src.index_select(0, index)`` (rows of ``src`` (rows, D)) whose
+    backward is a gather: ``inv`` (rows, fan) lists, for each source row,
+    the output rows that read it, and ``valid`` (rows, fan) bool marks
+    those whose gradient counts.  Source row r's gradient is the sum over
+    j of output row ``inv[r, j]`` where ``valid[r, j]``, in f32, rounded
+    once; a row ``valid`` leaves out adds nothing, non-finite or not.  No
+    atomics, no sort, no scatter.
+
+    The backward is the adjoint of the gather on the rows ``valid`` marks,
+    so every output row it leaves out must be zeroed downstream (an empty
+    slot by the slot mask, a dropped assignment by its zero gate
+    weight)."""
+
+    @staticmethod
+    def forward(ctx, src, index, inv, valid):
+        ctx.save_for_backward(inv, valid)
+        return src.index_select(0, index)
+
+    @staticmethod
+    def backward(ctx, grad):
+        inv, valid = ctx.saved_tensors
+        rows, fan = inv.shape
+        g = grad.index_select(0, inv.reshape(-1)).reshape(rows, fan, -1)
+        g = torch.where(valid.unsqueeze(-1), g, 0)
+        if fan == 1:
+            return g.squeeze(1), None, None, None
+        return g.sum(1, dtype=F32).to(grad.dtype), None, None, None
+
+
+gather_rows = GatherRows.apply
+
+
+def gather_tables(slot_token, slot_mask, flat_slot, ok, top_k: int):
+    """``gather_rows``' tables from ``route``'s (G leading), the group
+    folded into the row index: token g·T_l + t, and row (e·G + g)·C + c of
+    the (E, G, C) slot buffer.
+
+    Returns ``(slot_src (E·G·C,), a_row (T, k), ok (T, k), assign
+    (E·G·C, 1), filled (E·G·C, 1))``: each slot's token; each assignment's
+    slot row (a dropped one's clamped, as ``flat_slot``) and whether it
+    fit; each slot's assignment (built by one scatter, a dropped assignment
+    sent to a spare row that is sliced off) and whether the slot holds
+    one."""
+    groups, n_experts, cap = slot_token.shape
+    n_rows = n_experts * groups * cap
+    dev = slot_token.device
+    n = flat_slot.shape[-1]
+    gi = torch.arange(groups, device=dev).unsqueeze(1)              # (G, 1)
+    slot_src = (slot_token + (gi * (n // top_k)).unsqueeze(2)).movedim(0, 1)
+    a_row = ((flat_slot // cap * groups + gi) * cap + flat_slot % cap) \
+        .reshape(-1, top_k)
+    ok = ok.reshape(-1, top_k)
+    assign = torch.zeros(n_rows + 1, dtype=torch.long, device=dev).scatter(
+        0, torch.where(ok, a_row, n_rows).reshape(-1),
+        torch.arange(groups * n, device=dev)).narrow(0, 0, n_rows)
+    filled = slot_mask.movedim(0, 1).reshape(n_rows, 1) > 0
+    return slot_src.reshape(-1), a_row, ok, assign.unsqueeze(1), filled
+
+
+def _plain(*ts) -> bool:
+    """No tensor of ``ts`` is a DTensor: the gather-form path indexes
+    local rows."""
+    from torch.distributed.tensor import DTensor
+    return not any(isinstance(t, DTensor) for t in ts)
+
+
 def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
               capacity_factor: float, norm_topk: bool = True,
               path: str = '', col=None, taps=None, capture=None,
@@ -124,7 +199,9 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     ``f'{path}/router/w'``, ``f'{path}/gate/w'`` (E, D, d_ff) and the rest.
     Dropless up to capacity; overflow drops.  While tracing is on
     (``obs/spans.py``) the assignments and the dropped ones are counted,
-    once a call, as ``moe.assignments/<path>`` and ``moe.dropped/<path>``."""
+    once a call, as ``moe.assignments/<path>`` and ``moe.dropped/<path>``,
+    and each call that takes the gather-form path (plain tensors) as 1 in
+    ``moe.gather_form/<path>``."""
     col = col if col is not None else {}
     b, s, d = x.shape
     t = b * s
@@ -155,19 +232,28 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
     cap = capacity(tg, top_k, n_experts, capacity_factor)
     slot_token, slot_mask, flat_slot, ok = route(
         expert_ids.reshape(groups, tg * top_k), n_experts, top_k, cap)
-    slot_mask = slot_mask.movedim(0, 1)                            # (E,G,C)
+    xd = xt.to(compute_dtype) if compute_dtype is not None else xt
+    plain = _plain(xd, expert_ids)
     tracker = obs_spans.tracing()
     if tracker is not None:
         tracker.count(f'moe.assignments/{path}', ok.numel())
         tracker.count(f'moe.dropped/{path}', (~ok).sum())
+        if plain:
+            tracker.count(f'moe.gather_form/{path}', 1)
 
-    xd = xt.to(compute_dtype) if compute_dtype is not None else xt
-    xg = constrain(xd.reshape(groups, tg, d), 'data', None, None)
-    if groups == 1:
-        disp = xg[0][slot_token[0]][:, None]                       # (E,1,C,D)
+    if plain:
+        slot_src, a_row, ok, assign, filled = gather_tables(
+            slot_token, slot_mask, flat_slot, ok, top_k)
+        disp = gather_rows(xd, slot_src, a_row, ok) \
+            .reshape(n_experts, groups, cap, d)
     else:
-        gi = torch.arange(groups, device=x.device)[:, None, None]
-        disp = xg[gi, slot_token].movedim(0, 1)                    # (E,G,C,D)
+        xg = constrain(xd.reshape(groups, tg, d), 'data', None, None)
+        if groups == 1:
+            disp = xg[0][slot_token[0]][:, None]                   # (E,1,C,D)
+        else:
+            gi = torch.arange(groups, device=x.device)[:, None, None]
+            disp = xg[gi, slot_token].movedim(0, 1)                # (E,G,C,D)
+    slot_mask = slot_mask.movedim(0, 1)                            # (E,G,C)
     disp = disp * slot_mask[..., None].to(xd.dtype)
     disp = constrain(disp, 'model', 'data', None, None)
 
@@ -184,14 +270,18 @@ def moe_apply(p: dict, x: torch.Tensor, *, top_k: int,
 
     # combine: gather each assignment's slot in its group, weighted top-k
     # sum in f32, all group-local
-    out_g = out_e.movedim(1, 0).reshape(groups, n_experts * cap, d)
-    out_g = constrain(out_g, 'data', None, None)
     w_tk = (gate_vals * ok.reshape(t, top_k)).to(F32)
-    if groups == 1:
-        y_tk = out_g[0][flat_slot[0]]
+    if plain:
+        y_tk = gather_rows(out_e.reshape(-1, d), a_row.reshape(-1), assign,
+                           filled)
     else:
-        y_tk = out_g[torch.arange(groups, device=x.device)[:, None],
-                     flat_slot]
+        out_g = out_e.movedim(1, 0).reshape(groups, n_experts * cap, d)
+        out_g = constrain(out_g, 'data', None, None)
+        if groups == 1:
+            y_tk = out_g[0][flat_slot[0]]
+        else:
+            y_tk = out_g[torch.arange(groups, device=x.device)[:, None],
+                         flat_slot]
     y = torch.einsum('tkd,tk->td', y_tk.reshape(t, top_k, d).to(F32), w_tk)
     y = constrain(y.reshape(groups, tg, d), 'data', None, None)
     return y.reshape(b, s, d).to(x.dtype), aux

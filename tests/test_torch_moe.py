@@ -16,6 +16,14 @@ exact; outputs, stats, gradients and the f32-compute logits within 1e-5 of
 each leaf's largest magnitude (``_close_rel``); bf16-compute logits and
 router probabilities within BF16_LOGITS_REL and BF16_PROB_TOL, set from
 the gaps measured there.
+
+The gather-form dispatch and combine (``moe.gather_rows``, the path of
+plain tensors) against the advanced-index gathers (the DTensor path) on
+the same plain CPU tensors: forward, the combine's gradient, every weight's
+and tap's gradient equal bit for bit; the token gradient, summed in another
+order, within TOKEN_GRAD_ULPS of the dtype's epsilon a term, of its largest
+magnitude; ``gather_rows``' backward under ``torch.autograd.gradcheck`` in
+f64.
 """
 import pytest
 
@@ -35,6 +43,8 @@ from repro_torch.core import kv  # noqa: E402
 from repro_torch.models import module as M  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models.registry import build_model  # noqa: E402
+from repro_torch.obs import spans  # noqa: E402
+from repro_torch.sharding import compat  # noqa: E402
 from test_torch_lm_modules import _close_rel, _np_tree, _t  # noqa: E402
 from test_torch_lm_train import _one_thread  # noqa: E402,F401
 
@@ -42,6 +52,11 @@ D, FF, E = 16, 24, 4
 # bf16 compute: twice and three times the gaps measured (see
 # test_bf16_compute_forward)
 BF16_LOGITS_REL, BF16_PROB_TOL = 1.5e-2, 1e-2
+# the token gradient: top_k terms summed in another order (and, in bf16,
+# in f32 and rounded once, where the advanced-index backward may round
+# each add): at most this many epsilons of the dtype a term, of its
+# largest magnitude
+TOKEN_GRAD_ULPS = 1.0
 
 
 def test_capacity():
@@ -351,3 +366,118 @@ def test_bf16_compute_forward(monkeypatch):
     w = np.asarray(want, np.float32)
     check_routing(seen, calls, BF16_PROB_TOL)
     _close_rel(got.float(), w, 'bf16 logits', rel=BF16_LOGITS_REL)
+
+
+def _gather_form_case(dtype, skew):
+    g = torch.Generator().manual_seed(5)
+    p = {'moe/router/w': torch.randn(D, 2 * E, generator=g) * 0.5,
+         'moe/gate/w': torch.randn(2 * E, D, FF, generator=g) * 0.3,
+         'moe/up/w': torch.randn(2 * E, D, FF, generator=g) * 0.3,
+         'moe/down/w': torch.randn(2 * E, FF, D, generator=g) * 0.3}
+    p['moe/router/w'][:, 0] += skew
+    x = torch.randn(2, 12, D, generator=g) + skew
+    d_out = {'router': 2 * E, 'gate': FF, 'up': FF, 'down': D}
+    taps = {f'moe/{n}/w': torch.zeros((d,) if n == 'router' else (2 * E, d))
+            for n, d in d_out.items()}
+    return ({k: v.to(dtype) for k, v in p.items()}, x.to(dtype),
+            {k: v.to(dtype) for k, v in taps.items()})
+
+
+def _run_gather_form(monkeypatch, p, x, taps, factor, groups, plain):
+    """moe_apply at top-4 of 8 experts in ``groups`` groups (an abstract
+    mesh: plain tensors), on the gather-form path or, with ``plain``
+    False, the advanced-index gathers: (y, aux, stats, tracker, the
+    gradients of x, the weights, the taps and the expert FFN's output)."""
+    outs = []
+    expert_linear = moe._expert_linear
+
+    def keep(w, h, **kw):
+        out = expert_linear(w, h, **kw)
+        if kw['wpath'].endswith('/down/w'):
+            outs.append(out)
+        return out
+    with monkeypatch.context() as m:
+        m.setattr(moe, '_expert_linear', keep)
+        if not plain:
+            m.setattr(moe, '_plain', lambda *ts: False)
+        leaves = [x, *p.values(), *taps.values()]
+        leaves = [v.detach().requires_grad_(True) for v in leaves]
+        tx, tp = leaves[0], dict(zip(p, leaves[1:1 + len(p)]))
+        tt = dict(zip(taps, leaves[1 + len(p):]))
+        col = {}
+        with compat.set_mesh(compat.AbstractMesh((groups, 1),
+                                                 ('data', 'model'))), \
+                spans.recording(spans.SpanTracker()) as tracker:
+            y, aux = moe.moe_apply(tp, tx, top_k=4, capacity_factor=factor,
+                                   path='moe', col=col, taps=tt,
+                                   capture=kv.EVA_CAPTURE, aux_coef=1e-2)
+        loss = torch.sin(y.float()).sum() + 10 * aux
+        grads = torch.autograd.grad(loss, [*leaves, outs[0]])
+    return y, aux, col, tracker, grads
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('groups', [1, 2])
+@pytest.mark.parametrize('factor', [1.0, 4.0])
+def test_gather_form_against_advanced_index(monkeypatch, factor, groups,
+                                            dtype):
+    """Capacity factor 1.0 with a skewed router (drops) and 4.0 (many
+    empty slots), one and two groups, f32 and bf16."""
+    dt = getattr(torch, dtype)
+    p, x, taps = _gather_form_case(dt, skew=1.0 if factor == 1.0 else 0.0)
+    got = _run_gather_form(monkeypatch, p, x, taps, factor, groups, True)
+    want = _run_gather_form(monkeypatch, p, x, taps, factor, groups, False)
+    (y, aux, col, tracker, grads), (wy, waux, wcol, wtracker, wgrads) = \
+        got, want
+    assert y.dtype == dt
+    assert torch.equal(y, wy) and torch.equal(aux, waux)
+    assert tracker.counters['moe.gather_form/moe'] == [1]
+    assert 'moe.gather_form/moe' not in wtracker.counters
+    dropped = int(tracker.total('moe.dropped/moe'))
+    assert dropped == int(wtracker.total('moe.dropped/moe'))
+    assert (dropped > 0) == (factor == 1.0), dropped
+    assert set(col) == set(wcol) == set(taps)
+    for k in col:
+        assert torch.equal(col[k].a_mean, wcol[k].a_mean), k
+        assert torch.equal(col[k].count, wcol[k].count), k
+    names = ['x', *p, *(f'tap {k}' for k in taps), 'combine']
+    for name, g, w in zip(names[1:], grads[1:], wgrads[1:]):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+    gx, wx = grads[0].float(), wgrads[0].float()
+    scale = float(wx.abs().max())
+    tol = TOKEN_GRAD_ULPS * 4 * torch.finfo(dt).eps * scale
+    assert float((gx - wx).abs().max()) <= tol
+
+
+@pytest.mark.parametrize('groups', [1, 2])
+def test_gather_rows_gradcheck(groups):
+    """``gather_rows``' backward is the adjoint of its gather behind the
+    masks ``moe_apply`` puts there: the dispatch's slot mask and the
+    combine's gate weights, zero on a dropped assignment.  Tiny shapes,
+    f64; expert 0 takes every token's first pick, past its capacity."""
+    top_k, n_exp, tg = 2, 4, 10
+    gen = torch.Generator().manual_seed(6)
+    second = 1 + torch.randint(0, n_exp - 1, (groups, tg), generator=gen)
+    ids = torch.stack([torch.zeros_like(second), second], -1)
+    cap = moe.capacity(tg, top_k, n_exp, 1.0)
+    slot_token, slot_mask, flat_slot, ok = moe.route(
+        ids.reshape(groups, tg * top_k), n_exp, top_k, cap)
+    assert not ok.all()
+    slot_src, a_row, ok_tk, assign, filled = moe.gather_tables(
+        slot_token, slot_mask, flat_slot, ok, top_k)
+    mask = slot_mask.movedim(0, 1).reshape(-1, 1).double()
+    w = torch.rand(groups * tg, top_k, generator=gen, dtype=torch.float64)
+    w = w * ok_tk
+
+    def dispatch(x):
+        return moe.gather_rows(x, slot_src, a_row, ok_tk) * mask
+
+    def combine(o):
+        y = moe.gather_rows(o, a_row.reshape(-1), assign, filled)
+        return (y.reshape(-1, top_k, 3) * w.unsqueeze(-1)).sum(1)
+    x = torch.randn(groups * tg, 3, generator=gen, dtype=torch.float64,
+                    requires_grad=True)
+    o = torch.randn(mask.shape[0], 3, generator=gen, dtype=torch.float64,
+                    requires_grad=True)
+    assert torch.autograd.gradcheck(dispatch, (x,))
+    assert torch.autograd.gradcheck(combine, (o,))

@@ -6,7 +6,8 @@ as with it on (``make_train_step`` at one and two microbatches, and
 which tile it, with the statistics' ``capture`` spans under 'forward' and
 'backward' and, on a remat model, autograd's recompute under 'backward'.  A
 ``torch.profiler`` session turns the default tracker on, each session in a
-session of its own.  The MoE counters equal what ``route`` returned.
+session of its own.  The MoE counters equal what ``route`` returned, and
+the gather-form counter counts each call on plain tensors.
 ``device_split`` on hand-made spans and device intervals.  Exact
 comparisons throughout: nothing here rounds.
 """
@@ -246,7 +247,33 @@ def test_moe_counters_equal_route(monkeypatch, remat, grad):
     assert sum(dropped) > 0
     assert tracker.total('moe.dropped/moe') == sum(dropped)
     assert set(tracker.counters) == {'moe.assignments/moe',
-                                     'moe.dropped/moe'}
+                                     'moe.dropped/moe',
+                                     'moe.gather_form/moe'}
+
+
+@pytest.mark.parametrize('remat, grad, plain', [
+    ('none', False, True), ('dots', True, True), ('dots', True, False)])
+def test_moe_gather_form_counter(monkeypatch, remat, grad, plain):
+    """``moe.gather_form/<path>`` counts 1 for each ``moe_apply`` call on
+    plain tensors, call for call with ``moe.assignments/<path>`` (the
+    recompute's calls too), and nothing on the advanced-index path."""
+    model, opt, cap, params, state, batch = _setup(remat)
+    if not plain:
+        monkeypatch.setattr(moe, '_plain', lambda *ts: False)
+    step = make_train_step(model, opt, cap, device='cpu')
+    with spans.recording(spans.SpanTracker()) as tracker:
+        if grad:
+            step(params, state, batch)
+        else:
+            with torch.no_grad():
+                model.loss_fn(params, None, batch, None)
+    calls = len(tracker.counters['moe.assignments/moe'])
+    assert calls == LAYERS * (2 if grad else 1)
+    if plain:
+        assert tracker.counters['moe.gather_form/moe'] == [1] * calls
+        assert tracker.total('moe.gather_form/moe') == calls
+    else:
+        assert 'moe.gather_form/moe' not in tracker.counters
 
 
 def _rec(name, start, end, depth=0, parent=None):
