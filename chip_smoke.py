@@ -130,7 +130,22 @@ Phases; any failure stops the run with a non-zero exit:
               jamba-v0.1-52b, one whole period of 8 layers at published
               widths (13,267,656,416 parameters, 26.5 GB of bf16 weights):
               serving 1 x 2048 and 16 decode steps; Eva composed and fused
-              at its reduced config.
+              at its reduced config.  Each training run reports the SSD
+              kernels' calls.  9e: the SSD kernels (kernels/ssd.py) against
+              ssd_plain evaluated in float64 and in f32 on the same inputs,
+              at (chunk, d_state, headdim) (256, 128, 64), (256, 16, 64) and
+              (8, 16, 16) with the configs' own batch and heads (the
+              mamba2-780m cell's 8 x 2048 x 48, jamba-v0.1-52b's 1 x 2048 x
+              128), two lengths padded, f32 and bf16 inputs: every
+              output and gradient within 1e-5 of its largest magnitude or
+              twice the plain f32 version's own distance (d(a): four
+              times), bf16 outputs within one bf16 rounding; bit for bit
+              across two runs; finite at chunk 256 with A up to 16; the
+              cell's scan timed beside the plain version and its bounds
+              (f32 FMA, and the tensor cores as the precision contract
+              allows), with a profile by kernel; one
+              mamba2-780m Eva step launching 96 forward and 48 backward
+              calls, with 144 ssd spans.
 10. workers — the multi-worker layers over torch.distributed.  10a, a
               one-rank NCCL group in this process: make_dp_step equals
               make_train_step bit for bit on the full-width autoencoder
@@ -264,6 +279,8 @@ DEVICE_LAUNCHES = {'bilinear': (1.0, 1.0), 'rank1_update': (1.0, 1.0),
                    'eva_f_fused': (2.0, 2.0), 'matvec_cols': (1.0, 1.0)}
 HBM_BYTES_PER_S = 3.35e12                   # H100 SXM data sheet
 F32_FLOPS = 67e12                           # H100 SXM f32, no tensor cores
+BF16_TC_FLOPS = 989e12                      # H100 SXM dense bf16 tensor cores
+TF32_TC_FLOPS = 495e12                      # H100 SXM dense TF32 tensor cores
 STEPS = 20
 # steps of each torch.profiler breakdown (the trace costs about 0.45 ms of
 # host an event, a few hundred events a step)
@@ -389,6 +406,39 @@ MAMBA_BATCH, MAMBA_SEQ = 4, 2048
 WHISPER_BATCH, WHISPER_FRAMES = 8, 1024
 # 9d: jamba-v0.1-52b, one whole period of 8 layers at published widths
 JAMBA_DEPTH, JAMBA_PARAMS, JAMBA_PROMPT = 8, 13_267_656_416, 2048
+# 9e: the SSD kernels (kernels/ssd.py) against ssd_plain on the same inputs,
+# as mamba_block passes them (x, B and C views of one projection, dt a
+# softplus): (tag, batch, length, heads, headdim, d_state, chunk) at the
+# shapes the configs run on the card, at their batch and heads (the
+# mamba2-780m cell's 8 x 2048 with 48 heads, jamba-v0.1-52b's 9d prefill
+# with its 128, the reduced configs' 9d training), two of them padded.
+# The mamba2-780m cell's scan is timed too: 8 x 2048 tokens, 48 heads, bf16
+SSD_CELL = (8, 2048, 48, 64, 128, 256)
+SSD_CASES = (('mamba2-780m', *SSD_CELL),
+             ('mamba2-780m padded', 2, 1000, 8, 64, 128, 256),
+             ('jamba-v0.1-52b', 1, JAMBA_PROMPT, 128, 64, 16, 256),
+             ('reduced', 4, 256, 8, 16, 16, 8),
+             ('reduced padded', 2, 61, 4, 16, 16, 8))
+# each output and gradient within SSD_REL of its largest magnitude in the
+# plain version evaluated in float64 (tests/test_torch_ssm.py's _close_rel),
+# or within twice the plain f32 version's own distance from float64 where
+# that is larger: at chunk 256 f32 rounding alone moves ddt 1.07e-5 (the
+# kernels sum seg in torch.cumsum's order, so both carry the same seg).  da
+# sums d(dt·a)·dt over every position, and those terms cancel to a
+# fiftieth of their size: the plain f32 version lies 4.4e-5 to 2.5e-4 from
+# float64 there, and the kernels' other order of the same f32 sums up to
+# 2.5 times as far, so da is held within SSD_DA_TIMES its distance; bf16
+# outputs within one bf16 rounding (half an ulp) of each float64 value plus
+# SSD_REL of the largest.  The plain version's bf16 dx is itself two
+# rounded gradients added in bf16 (x reaches the scan and the skip through
+# two casts), up to 1.5 ulps and more where the two cancel, so the kernels
+# are held to float64 and the plain version's distance is printed beside
+SSD_REL, SSD_DA_TIMES = 1e-5, 4
+# dt + 1 and A from 1 to SSD_STRONG_A over the heads at chunk 256: dt·A sums
+# to thousands in a chunk (test_ssd_gradients_finite_at_a_long_chunk);
+# finite, and within SSD_STRONG_REL of float64 (that test's limit)
+SSD_STRONG_A, SSD_STRONG_REL = 16.0, 1e-3
+SSD_TIME_ITERS = 3
 # phase 11: the training CLI (repro_torch.launch.train.main) on demo-100m at
 # full width, 16 x 512 tokens a step; tag -> (flags, the port's kernel
 # launches a step, whether the run is traced).  Each run beside its
@@ -2634,9 +2684,11 @@ def _family_run(torch, model, params0, batches, *, name, lr, opt_kw, fused,
     covers the forward, backward, kernel update and apply.  Then one kernel
     step profiled, and one whose kernel inputs are copied to host memory
     and held against the plain versions with phase 3's limits.  The path
-    launches exactly ``want`` ({kernel: calls a step}) a step.  Returns
-    (launches, what it read)."""
+    launches exactly ``want`` ({kernel: calls a step}) a step; the SSD
+    kernels' calls (``kernels/ssd.py``, forward and backward) are read
+    beside.  Returns (launches, what it read)."""
     from repro_torch.kernels import launches
+    from repro_torch.kernels import ssd as ssd_kernels
     from repro_torch.train.step import init_opt_state, make_phased_step
     (opt_k, cap, _), (opt_p, _, _) = (
         _make_opt(name, lr, fused, impl, opt_kw=opt_kw)
@@ -2653,6 +2705,7 @@ def _family_run(torch, model, params0, batches, *, name, lr, opt_kw, fused,
         with torch.no_grad():
             return model.loss_fn(p, None, batch, None)[0].item()
     launches.reset()
+    ssd_kernels.reset_launches()
     for i in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -2706,6 +2759,7 @@ def _family_run(torch, model, params0, batches, *, name, lr, opt_kw, fused,
     with _recording(torch, host=True) as (seen, _):
         kernel_step()
     got = launches.snapshot()
+    ssd_calls = dict(ssd_kernels.LAUNCHES)
     del state, params
     want = {k: want.get(k, 0) * (n + 2) for k in launches.COUNTS}
     require(got == want, f'{tag}: launches {got} != {want}')
@@ -2722,11 +2776,12 @@ def _family_run(torch, model, params0, batches, *, name, lr, opt_kw, fused,
             'device_idle_share': 1.0 - busy_us / 1e3 / med if busy_us
             else 'not measured',
             'device_kernels_profiled_step': kernels,
-            'err_share_of_limit': kerr}
+            'err_share_of_limit': kerr, 'ssd_calls': ssd_calls}
     print(f'  {tag}: launches {dict((k, v) for k, v in got.items() if v)}; '
           f'losses {[round(x, 5) for x in losses]}; update vs plain '
           f'{max(upd_rel):.2e} of its norm; next-batch loss vs plain '
-          f'{max(loss_rel):.2e} rel; step ms {[round(x, 1) for x in step_ms]}'
+          f'{max(loss_rel):.2e} rel; SSD kernel calls {ssd_calls}; step ms '
+          f'{[round(x, 1) for x in step_ms]}'
           f'; profiled step: {kernels} device kernels, busy '
           f'{busy_us / 1e3:.1f} ms, idle {info["device_idle_share"]}; on '
           f'the path\'s inputs, error as a share of its limit '
@@ -3097,6 +3152,282 @@ FAMILY_CASES = (
     (None, dict(tag='hybrid reduced', arch='jamba-v0.1-52b', seed=13,
                 reduced=True, train=(4, 256, 'both'))),
 )
+
+
+def _ssd_case(torch, b, s, h, p, n, dtype, seed, strong=False):
+    """Inputs of one scan as mamba_block makes them, and a dy and a
+    final-state gradient."""
+    import torch.nn.functional as F
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+
+    def r(*shape):
+        return torch.randn(shape, generator=gen, device='cuda')
+    xbc = r(b, s, h * p + 2 * n).to(dtype)
+    x = xbc[..., :h * p].reshape(b, s, h, p)
+    bm, cm = xbc[..., h * p:h * p + n], xbc[..., h * p + n:]
+    dt = F.softplus(r(b, s, h))
+    if strong:
+        dt = dt + 1.0
+        a = -torch.linspace(1.0, SSD_STRONG_A, h, device='cuda')
+    else:
+        a = -torch.exp(0.5 * r(h))
+    return (x, dt, a, bm, cm, r(h)), r(b, s, h, p).to(dtype), r(b, h, n, p)
+
+
+SSD_NAMES = ('y', 'final_state', 'dx', 'ddt', 'da', 'dB', 'dC', 'dD')
+
+
+def _ssd_run(torch, fn, ins, dy, dfinal, cast=None):
+    """(y, final_state, and the six gradients) of fn on ins, against dy and
+    dfinal; cast: applied to every input and to dy first."""
+    cast = cast or (lambda t: t)
+    leaves = [cast(t).detach().requires_grad_(True) for t in ins]
+    y, final = fn(*leaves)
+    loss = (y.float() * cast(dy).float()).sum() + (final * dfinal).sum()
+    return [y.detach(), final.detach(),
+            *torch.autograd.grad(loss, leaves)]
+
+
+def _ssd_f64(torch, ins, dy, dfinal, chunk):
+    """ssd_plain computed in float64, on the inputs and dy widened
+    exactly."""
+    from repro_torch.models import ssm
+    return _ssd_run(
+        torch, lambda *a: ssm.ssd_plain_in(torch.float64, *a, chunk=chunk),
+        ins, dy, dfinal.double(), lambda t: t.double())
+
+
+def _rel(torch, got, want):
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max().clamp_min(1e-30)).item()
+
+
+def _bf16_rounds(torch, got, truth):
+    """The largest |got - truth| over one bf16 rounding of truth (half its
+    ulp) plus SSD_REL of truth's largest magnitude (<= 1 passes)."""
+    t = truth.double()
+    ulp = torch.exp2(torch.floor(torch.log2(t.abs().clamp_min(1e-38))) - 7)
+    return ((got.double() - t).abs() / (0.5 * ulp + SSD_REL * t.abs().max())
+            ).max().item()
+
+
+def _ssd_check(torch, tag, dims, dtype, seed, strong=False):
+    """One case: the kernels and the plain f32 version against the plain
+    version in float64; the kernels twice, bit for bit.  Returns what it
+    read."""
+    from repro_torch.kernels import ssd as ssd_kernels
+    from repro_torch.models import ssm
+    b, s, h, p, n, chunk = dims
+    ins, dy, dfinal = _ssd_case(torch, b, s, h, p, n, dtype, seed, strong)
+    kern = _ssd_run(torch, lambda *a: ssd_kernels.ssd(*a, chunk), ins, dy,
+                    dfinal)
+    again = _ssd_run(torch, lambda *a: ssd_kernels.ssd(*a, chunk), ins, dy,
+                     dfinal)
+    plain = _ssd_run(torch, lambda *a: ssm.ssd_plain(*a, chunk=chunk), ins,
+                     dy, dfinal)
+    truth = _ssd_f64(torch, ins, dy, dfinal, chunk)
+    out = {}
+    for name, k, k2, pl, t in zip(SSD_NAMES, kern, again, plain, truth):
+        require(torch.equal(k, k2), f'ssd {tag} {dtype}: {name} differs '
+                'between two runs')
+        require(bool(torch.isfinite(k).all()), f'ssd {tag} {dtype}: {name} '
+                'not finite')
+        require(k.dtype == pl.dtype and k.shape == pl.shape,
+                f'ssd {tag}: {name} {k.dtype} {tuple(k.shape)}, plain '
+                f'{pl.dtype} {tuple(pl.shape)}')
+        rk, rp = _rel(torch, k, t), _rel(torch, pl, t)
+        row = {'kernel_vs_f64': rk, 'plain_vs_f64': rp,
+               'kernel_vs_plain': _rel(torch, k, pl)}
+        limit = SSD_STRONG_REL if strong else max(
+            SSD_REL, (SSD_DA_TIMES if name == 'da' else 2) * rp)
+        if k.dtype == torch.bfloat16:
+            row['bf16_rounds'] = u = _bf16_rounds(torch, k, t)
+            row['plain_bf16_rounds'] = _bf16_rounds(torch, pl, t)
+            require(u <= 1.0, f'ssd {tag} bf16: {name} {u:.3f} bf16 '
+                    'roundings from float64 (the plain version '
+                    f'{row["plain_bf16_rounds"]:.3f})')
+        else:
+            require(rk <= limit, f'ssd {tag} {dtype}: {name} {rk:.2e} of '
+                    f'its largest magnitude from float64 (limit '
+                    f'{limit:.1e}; the plain f32 version {rp:.2e})')
+        out[name] = {k_: float(f'{v:.3e}') for k_, v in row.items()}
+    return out
+
+
+def _ssd_work(b, s, h, p, n, chunk, itemsize):
+    """What the forward and the backward need: ({'bf16': FLOPs of products
+    of two bf16 operands, 'f32': FLOPs of products with an f32 operand},
+    bytes), the products below the diagonal only, each input read and each
+    output written once.  Only C·Bᵀ and dy·xᵀ have two bf16 operands, at
+    bf16 inputs."""
+    nc = -(-s // chunk)
+    tri = chunk * (chunk + 1) // 2
+    cb = 2 * nc * b * tri * n                         # C·Bᵀ a (b, c)
+    per_h = 2 * nc * b * h
+    # the forward: the intra-chunk product, the chunk states, the
+    # inter-chunk output
+    fwd = {'bf16': cb, 'f32': per_h * (tri * p + 2 * chunk * n * p)}
+    # the backward: dy·xᵀ, and dx below the diagonal; dS, dC and dB against
+    # the states, dx from them; dC and dB from d(C·Bᵀ)
+    bwd = {'bf16': per_h * tri * p,
+           'f32': per_h * (tri * p + 4 * chunk * n * p) + 2 * cb}
+    if itemsize != 2:
+        fwd, bwd = ({'bf16': 0, 'f32': w['bf16'] + w['f32']}
+                    for w in (fwd, bwd))
+    io = b * s * (h * p + 2 * n) * itemsize + b * s * h * 4
+    fwd_bytes = io + b * s * h * p * itemsize + b * h * n * p * 4
+    bwd_bytes = 2 * io + b * s * h * p * itemsize + b * s * (h * p + 2 * n) \
+        * itemsize + b * s * h * 4
+    return (fwd, fwd_bytes), (bwd, bwd_bytes)
+
+
+def _ssd_bounds(flops, n_bytes, itemsize):
+    """Least ms of SSD work ({'bf16', 'f32'} FLOPs, bytes) on the card:
+    'f32_simt', every product as f32 FMA at 67 TFLOP/s (how the kernels
+    compute); 'tensor_cores', what the precision contract allows: the
+    products of two bf16 operands at the bf16 rate, each with an f32
+    operand as a TF32 split of it, two TF32 products against a bf16
+    operand (exact in TF32) and three against an f32 one; 'bytes' at
+    3.35 TB/s."""
+    split = 2 if itemsize == 2 else 3
+    return {'f32_simt': (flops['bf16'] + flops['f32']) / F32_FLOPS * 1e3,
+            'tensor_cores': (flops['bf16'] / BF16_TC_FLOPS
+                             + split * flops['f32'] / TF32_TC_FLOPS) * 1e3,
+            'bytes': n_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def _ssd_times(torch):
+    """The kernels' and the plain version's device ms at the cell's scan,
+    forward alone and forward with backward, beside their bound."""
+    from repro_torch.kernels import ssd as ssd_kernels
+    from repro_torch.models import ssm
+    b, s, h, p, n, chunk = SSD_CELL
+    ins, dy, _ = _ssd_case(torch, b, s, h, p, n, torch.bfloat16, 7)
+    leaves = [t.detach().requires_grad_(True) for t in ins]
+
+    def fwd(fn):
+        def run():
+            with torch.no_grad():
+                fn(*ins)
+        return run
+
+    def both(fn):
+        def run():
+            y, _ = fn(*leaves)
+            torch.autograd.grad(y, leaves, dy)
+        return run
+    kern = lambda *a: ssd_kernels.ssd(*a, chunk)       # noqa: E731
+    plain = lambda *a: ssm.ssd_plain(*a, chunk=chunk)  # noqa: E731
+    (ff, fb), (bf, bb) = _ssd_work(b, s, h, p, n, chunk, 2)
+    both_flops = {k: ff[k] + bf[k] for k in ff}
+    out = {'shape': dict(zip(('batch', 'length', 'heads', 'headdim',
+                              'd_state', 'chunk'), SSD_CELL)),
+           'forward_gflop': {k: v / 1e9 for k, v in ff.items()},
+           'backward_gflop': {k: v / 1e9 for k, v in bf.items()},
+           'forward_bound_ms': _ssd_bounds(ff, fb, 2),
+           'fwd_bwd_bound_ms': _ssd_bounds(both_flops, fb + bb, 2)}
+    for name, fn in (('kernel', kern), ('plain', plain)):
+        out[f'{name}_forward_ms'] = _time_ms(torch, fwd(fn), SSD_TIME_ITERS,
+                                             warmup=2)
+        out[f'{name}_fwd_bwd_ms'] = _time_ms(torch, both(fn), SSD_TIME_ITERS,
+                                             warmup=2)
+        torch.cuda.empty_cache()
+    out['kernel_fwd_bwd_tflops'] = (sum(both_flops.values())
+                                     / out['kernel_fwd_bwd_ms'] / 1e9)
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run = both(kern)
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    out['kernel_device_us'] = {
+        e.key[:120]: e.self_device_time_total for e in prof.key_averages()
+        if e.device_type == DeviceType.CUDA}
+    return out
+
+
+def _ssd_step_launches(torch):
+    """One Eva step of mamba2-780m whole at the cell's batch (remat 'dots'):
+    the scan's kernel calls, forward and recompute, and backward; the
+    ssd.kernel counter; the step's host ms to enqueue and in all."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import ssd as ssd_kernels
+    from repro_torch.models.registry import build_model
+    from repro_torch.obs import spans
+    from repro_torch.train.step import make_phased_step
+    cfg = get_config('mamba2-780m')
+    model = build_model(cfg)
+    params = _on_card(torch, model, 20)
+    batch = _token_batches(torch, cfg.vocab, SSD_CELL[0], SSD_CELL[1], 1,
+                           200)[0]
+    lr, kw = FAMILY_PATHS['eva'][:2]
+    opt, cap, _ = _make_opt('eva', lr, True, 'auto', opt_kw=kw)
+    grad_fn = make_phased_step(model, opt, cap, device='cuda')[0]
+    grad_fn(params, batch)
+    torch.cuda.synchronize()
+    ssd_kernels.reset_launches()
+    with spans.recording(spans.SpanTracker()) as tracker:
+        t0 = time.perf_counter()
+        out = grad_fn(params, batch)
+        t1 = time.perf_counter()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    del out
+    got = dict(ssd_kernels.LAUNCHES)
+    want = {'forward': 2 * cfg.n_layers, 'backward': cfg.n_layers}
+    require(got == want, f'ssd: one mamba2-780m step launched {got}, '
+            f'expected {want}')
+    counted = sum(tracker.total(k) for k in tracker.counters
+                  if k.startswith('ssd.kernel/'))
+    require(counted == 2 * cfg.n_layers, f'ssd.kernel counters {counted}')
+    n_spans = sum(r['name'] == 'ssd' for r in tracker.records)
+    require(n_spans == 3 * cfg.n_layers, f'{n_spans} ssd spans a step')
+    del params
+    torch.cuda.empty_cache()
+    return {'launches_per_step': got, 'ssd_spans': n_spans,
+            'grad_host_enqueue_ms': (t1 - t0) * 1e3,
+            'grad_ms': (t2 - t0) * 1e3}
+
+
+def ssd_phase(torch):
+    """Phase 9e: the SSD kernels against the plain version, their times at
+    the cell's scan, and the launches of one mamba2-780m step."""
+    phase('9e the SSD kernels (kernels/ssd.py) against ssd_plain')
+    t0 = time.perf_counter()
+    info = {}
+    for i, (tag, b, s, h, p, n, chunk) in enumerate(SSD_CASES):
+        for dtype in (torch.float32, torch.bfloat16):
+            info[f'{tag} {str(dtype)[6:]}'] = _ssd_check(
+                torch, tag, (b, s, h, p, n, chunk), dtype, 30 + i)
+    info['strong decay'] = _ssd_check(torch, 'strong decay',
+                                      (1, 512, 16, 64, 16, 256),
+                                      torch.float32, 40, strong=True)
+    for k, v in info.items():
+        print(f'  {k}: ' + '; '.join(
+            f'{n_} {v[n_].get("bf16_rounds", v[n_]["kernel_vs_f64"])} '
+            f'(plain {v[n_].get("plain_bf16_rounds", v[n_]["plain_vs_f64"])})'
+            for n_ in SSD_NAMES),
+              flush=True)
+    info['times'] = times = _ssd_times(torch)
+    fb_, bb_ = times['forward_bound_ms'], times['fwd_bwd_bound_ms']
+    print(f'  cell scan: kernel fwd {times["kernel_forward_ms"]:.2f} ms, '
+          f'fwd+bwd {times["kernel_fwd_bwd_ms"]:.2f} ms '
+          f'({times["kernel_fwd_bwd_tflops"]:.1f} TFLOP/s); bounds fwd / '
+          f'fwd+bwd: tensor cores {fb_["tensor_cores"]:.3f} / '
+          f'{bb_["tensor_cores"]:.3f} ms, f32 SIMT {fb_["f32_simt"]:.3f} / '
+          f'{bb_["f32_simt"]:.3f}, bytes {fb_["bytes"]:.3f} / '
+          f'{bb_["bytes"]:.3f}; plain fwd {times["plain_forward_ms"]:.2f} '
+          f'ms, fwd+bwd {times["plain_fwd_bwd_ms"]:.2f} ms', flush=True)
+    for k, us in sorted(times['kernel_device_us'].items(),
+                        key=lambda kv: -kv[1]):
+        print(f'    {us / 1e3:8.3f} ms  {k}')
+    info['step'] = step = _ssd_step_launches(torch)
+    print(f'  mamba2-780m step: {step}', flush=True)
+    info['seconds'] = time.perf_counter() - t0
+    print(json.dumps({'ssd_checks': info}))
+    return info
 
 
 def _add_counts(rows, counts, per_step):
@@ -4705,6 +5036,7 @@ def main() -> None:
     corpus, bare_step_ms = lm_phase(torch, rows)
     rest_phases(torch, rows, corpus, bare_step_ms)
     families_phase(torch, rows)
+    ssd_phase(torch)
     multi_worker_phase(torch, rows)
     profile_recs = cli_phase(torch, rows)
     dispatch_phase(torch, rows)

@@ -4,7 +4,9 @@
 SSD runs in its chunked matmul form: attention-like matmuls inside each
 chunk, and the state carried from chunk to chunk by a recurrence (the
 reference's ``lax.scan`` over chunks is a loop here).  The chunk length is
-a config knob.
+a config knob.  ``ssd_chunked`` runs CUDA tensors through the kernels of
+``kernels/ssd.py``; CPU tensors and DTensors (the sharded layouts) take the
+plain version, ``ssd_plain``, which the tests hold the kernels to.
 
 Preconditioning: ``in_proj`` and ``out_proj`` are capture-aware linears
 (Eva applies); conv, ``A_log``, ``D`` and ``dt_bias`` are SSM-internal and
@@ -20,8 +22,11 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import launch
+from repro_torch.kernels import ssd as ssd_kernels
 from repro_torch.models.layers import linear, linear_spec, rmsnorm
 from repro_torch.models.module import ParamSpec
+from repro_torch.obs import spans as obs_spans
 from repro_torch.sharding.constraints import constrain
 
 F32 = torch.float32
@@ -70,9 +75,34 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
     return (out.transpose(1, 2) + b.to(F32)).to(x.dtype)
 
 
-def ssd_chunked(x, dt, a, bmat, cmat, d_skip, chunk: int = 128):
+def _takes_kernels(x: torch.Tensor) -> bool:
+    """A CUDA tensor that is not a DTensor (a DTensor keeps the plain scan,
+    which DTensor lays out on the mesh)."""
+    from torch.distributed.tensor import DTensor
+    return x.is_cuda and not isinstance(x, DTensor)
+
+
+def ssd_chunked(x, dt, a, bmat, cmat, d_skip, chunk: int = 256):
     """SSD forward.  x: (B,S,H,P); dt: (B,S,H); a: (H,) (negative);
-    bmat/cmat: (B,S,N); d_skip: (H,).  Returns (y, final_state (B,H,N,P))."""
+    bmat/cmat: (B,S,N); d_skip: (H,).  Returns (y, final_state (B,H,N,P)).
+    CUDA tensors take the kernels (a fake one, the cost trace's, records
+    one custom call); the rest ``ssd_plain``."""
+    if not _takes_kernels(x):
+        return ssd_plain(x, dt, a, bmat, cmat, d_skip, chunk)
+    if launch.is_fake_cuda(x):
+        return launch.fake_call('ssd', ssd_plain, x, dt, a, bmat, cmat,
+                                d_skip, chunk)
+    return ssd_kernels.ssd(x, dt, a, bmat, cmat, d_skip, chunk)
+
+
+def ssd_plain(x, dt, a, bmat, cmat, d_skip, chunk: int = 256):
+    """The plain version of ``ssd_chunked``, in f32."""
+    return ssd_plain_in(F32, x, dt, a, bmat, cmat, d_skip, chunk)
+
+
+def ssd_plain_in(dtype, x, dt, a, bmat, cmat, d_skip, chunk: int = 256):
+    """``ssd_plain`` computed in ``dtype`` (float64 on float64 inputs: the
+    truth ``chip_smoke.py`` holds the f32 versions to)."""
     bsz, s, h, p = x.shape
     n = bmat.shape[-1]
     chunk = min(chunk, s)
@@ -87,10 +117,10 @@ def ssd_chunked(x, dt, a, bmat, cmat, d_skip, chunk: int = 128):
     s_padded = s + pad
     nc = s_padded // chunk
 
-    xc = x.reshape(bsz, nc, chunk, h, p).to(F32)
-    dtc = dt.reshape(bsz, nc, chunk, h).to(F32)
-    bc = bmat.reshape(bsz, nc, chunk, n).to(F32)
-    cc = cmat.reshape(bsz, nc, chunk, n).to(F32)
+    xc = x.reshape(bsz, nc, chunk, h, p).to(dtype)
+    dtc = dt.reshape(bsz, nc, chunk, h).to(dtype)
+    bc = bmat.reshape(bsz, nc, chunk, n).to(dtype)
+    cc = cmat.reshape(bsz, nc, chunk, n).to(dtype)
 
     dta = dtc * a                                            # (b,c,q,h) ≤ 0
     seg = torch.cumsum(dta, dim=2)                           # within-chunk
@@ -114,7 +144,7 @@ def ssd_chunked(x, dt, a, bmat, cmat, d_skip, chunk: int = 128):
     s_chunk = torch.einsum('bckn,bckh,bckhp->bchnp', bc, decay_out * dtc, xc)
 
     # inter-chunk recurrence: the state *entering* each chunk
-    state = torch.zeros((bsz, h, n, p), dtype=F32, device=x.device)
+    state = torch.zeros((bsz, h, n, p), dtype=dtype, device=x.device)
     states_in = []
     for c in range(nc):
         states_in.append(state)
@@ -125,14 +155,14 @@ def ssd_chunked(x, dt, a, bmat, cmat, d_skip, chunk: int = 128):
     y_inter = torch.einsum('bcqn,bchnp,bcqh->bcqhp', cc, states_in,
                            torch.exp(seg))
     y = (y_intra + y_inter).reshape(bsz, s_padded, h, p)
-    y = y + x.to(F32) * d_skip[:, None]
+    y = y + x.to(dtype) * d_skip[:, None]
     if pad:
         y = y[:, :s]
     return y.to(x.dtype), state
 
 
 def mamba_block(p, x, *, headdim: int = 64, d_state: int = 128,
-                d_conv: int = 4, chunk: int = 128,
+                d_conv: int = 4, chunk: int = 256,
                 cache: Optional[dict] = None, return_cache: bool = False,
                 path: str = '', col=None, taps=None, capture=None,
                 compute_dtype=None):
@@ -141,7 +171,13 @@ def mamba_block(p, x, *, headdim: int = 64, d_state: int = 128,
     {'conv': (B,K-1,Ch), 'ssm': (B,H,N,P)}: with one, x is one token (decode:
     the conv buffer rolls and the state takes one recurrent step).
     ``return_cache=True`` (prefill) emits the cache from a cache-free
-    forward: the final SSD state and the last (K-1) pre-conv inputs."""
+    forward: the final SSD state and the last (K-1) pre-conv inputs.
+    Without a cache the scan runs under a span ``ssd``, and while tracing
+    is on (``obs/spans.py``) each call counts 1 in ``ssd.kernel/<path>``
+    where it takes the kernels, else 0.  On the card the kernels take
+    (chunk, d_state, headdim) in ``kernels/ssd.py::SHAPES`` (the defaults
+    among them), and raise on any other, naming it; a config's
+    ``ssm_chunk`` (128 unless it sets one) must be one of them there."""
     col = col if col is not None else {}
     bsz, s, _ = x.shape
     d_inner = p[f'{path}/norm/scale'].shape[0]
@@ -157,6 +193,11 @@ def mamba_block(p, x, *, headdim: int = 64, d_state: int = 128,
     if cache is None:
         xbc_raw = xbc
         xbc = F.silu(_causal_conv(xbc, conv_w, conv_b))
+        if _takes_kernels(xbc):
+            # the conv leaves the channels along the positions; the scan's
+            # kernels read each position's channels as one row (faster
+            # than reading the conv's layout in place, with this copy)
+            xbc = xbc.contiguous()
     else:
         # decode: roll the conv buffer (S == 1)
         buf = torch.cat([cache['conv'], xbc.to(cache['conv'].dtype)], 1)
@@ -175,8 +216,12 @@ def mamba_block(p, x, *, headdim: int = 64, d_state: int = 128,
     dt = constrain(dt, 'data', None, 'model')
 
     if cache is None:
-        y, final_state = ssd_chunked(xh, dt, a, bmat, cmat, d_skip,
-                                     chunk=chunk)
+        tracker = obs_spans.tracing()
+        if tracker is not None:
+            tracker.count(f'ssd.kernel/{path}', int(_takes_kernels(xh)))
+        with obs_spans.span('ssd'):
+            y, final_state = ssd_chunked(xh, dt, a, bmat, cmat, d_skip,
+                                         chunk=chunk)
         new_cache = None
         if return_cache:
             pad = d_conv - 1

@@ -4,7 +4,10 @@ lengths that fill the chunks and one that needs right-padding, and against
 a step-by-step recurrence; ``mamba_block``'s output, stats and tap
 gradients, its prefill cache (``return_cache``) and one decode step; and,
 within the port, a prefill followed by decode steps against a prefill over
-the whole sequence.
+the whole sequence.  The kernels of ``kernels/ssd.py`` run only on the
+card (``chip_smoke.py`` holds them to ``ssd_plain``); here: CPU tensors take
+``ssd_plain`` bit for bit, the kernels' wrapper raises on what they do not
+take, and the ``ssd`` span and ``ssd.kernel/<path>`` counter.
 
 Both sides run f32 on the CPU.  Stated tolerances: each output, state and
 gradient within 1e-5 of its largest magnitude (``_close_rel``); the
@@ -182,3 +185,77 @@ def test_ssd_gradients_finite_at_a_long_chunk():
     for name, g, w in zip(('x', 'dt', 'B', 'C'), grads(256), grads(8)):
         assert torch.isfinite(g).all(), name
         _close_rel(g, w.numpy(), f'd{name}', rel=1e-3)
+
+
+@pytest.mark.parametrize('s,chunk', [(16, 4), (13, 4)], ids=['4_chunks',
+                                                              'padded'])
+def test_ssd_cpu_route_is_the_plain_version(s, chunk):
+    """CPU tensors take ``ssd_plain``: the same outputs and autograd
+    gradients, bit for bit, and no kernel launch."""
+    from repro_torch.kernels import ssd as ssd_kernels
+    args = _ssd_inputs(np.random.default_rng(s), s)
+    before = dict(ssd_kernels.LAUNCHES)
+
+    def run(fn):
+        ins = [_t(v).requires_grad_(True) for v in args]
+        y, state = fn(*ins, chunk=chunk)
+        return [y, state, *torch.autograd.grad(
+            torch.sin(y).sum() + state.square().sum(), ins)]
+    for got, want in zip(run(ssm.ssd_chunked), run(ssm.ssd_plain)):
+        assert torch.equal(got, want)
+    assert ssd_kernels.LAUNCHES == before
+
+
+def _kernel_args(**change):
+    """Arguments the kernels take (chunk 8, d_state 16, headdim 16, f32),
+    on the CPU, with ``change`` applied."""
+    rng = np.random.default_rng(5)
+    x, dt, a, bm, cm, d = (_t(v) for v in _ssd_inputs(rng, 5, b=1, h=2,
+                                                        p=16, n=16))
+    args = dict(x=x, dt=dt, a=a, bmat=bm, cmat=cm, d_skip=d, chunk=8)
+    for k, f in change.items():
+        args[k] = f(args[k])
+    return args
+
+
+@pytest.mark.parametrize('change,error,match', [
+    (dict(x=lambda t: t.half()), TypeError, 'x must be float32 or bfloat16'),
+    (dict(dt=lambda t: t.bfloat16()), TypeError, 'dt must be'),
+    (dict(bmat=lambda t: t.bfloat16()), TypeError, 'bmat must be'),
+    (dict(x=lambda t: t.reshape(1, 5, 32)), ValueError, 'x must have 4'),
+    (dict(d_skip=lambda t: t[None]), ValueError, 'd_skip must have 1'),
+    (dict(x=lambda t: t.transpose(2, 3).contiguous().transpose(2, 3)),
+     ValueError, 'must be contiguous'),
+    (dict(cmat=lambda t: t.transpose(1, 2).contiguous().transpose(1, 2)),
+     ValueError, 'must be contiguous'),
+    (dict(chunk=lambda c: 128), ValueError, 'no kernel for chunk 128'),
+    ({}, ValueError, 'take CUDA tensors'),
+], ids=['x_float16', 'dt_bfloat16', 'bmat_unlike_x', 'x_rank', 'd_rank',
+        'x_strided_within_a_row', 'cmat_strided_within_a_row',
+        'shape_not_compiled', 'cpu_tensor'])
+def test_ssd_kernel_checks(change, error, match):
+    """The kernels' wrapper raises on what they do not take, before any
+    launch."""
+    from repro_torch.kernels import ssd as ssd_kernels
+    with pytest.raises(error, match=match):
+        ssd_kernels.ssd(**_kernel_args(**change))
+
+
+def test_ssd_span_and_kernel_counter():
+    """Under a tracker the scan of each cache-free ``mamba_block`` call
+    records a span ``ssd`` inside the block's, on the CPU route too, and
+    counts 0 in ``ssd.kernel/<path>`` there (1 on the kernels' route);
+    decode records neither."""
+    from repro_torch.obs import spans
+    rng = np.random.default_rng(4)
+    _, tp = _block_case(rng)
+    x = _t(rng.standard_normal((2, 12, D_MODEL)).astype(np.float32))
+    with spans.recording(spans.SpanTracker()) as tracker:
+        with spans.span('forward'):
+            y, cache = ssm.mamba_block(tp, x, return_cache=True,
+                                       path='mixer', **KW)
+        ssm.mamba_block(tp, x[:, :1], cache=cache, path='mixer', **KW)
+    recs = [r for r in tracker.records if r['name'] == 'ssd']
+    assert [(r['parent'], r['depth']) for r in recs] == [('forward', 1)]
+    assert tracker.counters == {'ssd.kernel/mixer': [0]}
+    assert tracker.total('ssd.kernel/mixer') == 0
